@@ -20,6 +20,13 @@ The band follows the device, as the JAX package's ``use_pallas`` does:
     static band through the plain torch versions of the kernels (the
     reference the card is held against).
 
+Under the static band, buckets past 65536 (reads of 65,537 bp up to
+``max_read_len``) take the adaptive band on the aligner's device, as the
+JAX package sends them to its adaptive scan (``pallas_ok`` there): the
+static pipeline is drained first, and the batch is sized as an adaptive
+one.  On a card that band is a loop of small torch ops per row, slow but
+rare (about 5e-5 of PacBio reads).
+
 With no CUDA device the default raises; it does not fall back to the CPU.
 A kernel that fails to build or launch raises too.  The host phases run
 under ``torch.profiler.record_function`` spans (``align.index``,
@@ -29,9 +36,7 @@ profiler trace splits a stage's wall between them and the card.
 Left out: the mesh path (``mesh=``, multi-device seeding and extension)
 waits for the multi-GPU slice; the pallas -> scan degrade chain is gone
 (no path catches a kernel error); batches are not padded to the bucket's
-full size, since the kernels take runtime shapes.  Reads in buckets past
-65536 stay on the static band here, where the JAX package sends them to
-its adaptive scan.
+full size, since the kernels take runtime shapes.
 """
 
 from __future__ import annotations
@@ -57,6 +62,10 @@ from ..utils.timing import Progress
 from .records import Alignment, AlignmentSet
 
 logger = logging.getLogger("aligngraph2_tpu_torch.align")
+
+# the largest bucket the static band takes; longer reads take the adaptive
+# band, as in the JAX package
+STATIC_MAX_NQ = 65536
 
 
 def _bucket(n: int, lo: int = 512) -> int:
@@ -99,8 +108,6 @@ class LongReadAligner:
             band = "static" if self.device.type == "cuda" else "adaptive"
         if band not in ("static", "adaptive"):
             raise ValueError(f"band={band!r}: 'static' or 'adaptive'")
-        if band == "adaptive" and self.device.type != "cpu":
-            raise ValueError("the adaptive band runs on the CPU only")
         if plain and band != "static":
             raise ValueError("plain=True runs the static band")
         self.band = band
@@ -193,19 +200,9 @@ class LongReadAligner:
                                            best_per_read)
         watermark = len(out)
         bar = Progress(len(jobs), enabled=self.progress)
-        static = self.band == "static"
-        batches = []
-        i = min(cursor, len(jobs))
-        bar.update(i)
-        while i < len(jobs):
-            NQ = _bucket(len(jobs[i][2]))
-            B = self._batch_size(NQ, static)
-            batch = []
-            while i < len(jobs) and len(batch) < B \
-                    and _bucket(len(jobs[i][2])) == NQ:
-                batch.append(jobs[i])
-                i += 1
-            batches.append((NQ, batch, i))
+        start = min(cursor, len(jobs))
+        bar.update(start)
+        batches = self._plan(jobs, start)
 
         def done(n_jobs: int, consumed: int) -> None:
             nonlocal watermark
@@ -214,29 +211,32 @@ class LongReadAligner:
                 ck.flush(out.alignments[watermark:], consumed)
                 watermark = len(out)
 
-        if static:
-            # software pipeline: dispatch batch i+1 before draining batch i
-            pending = None
-            for NQ, batch, end_i in batches:
-                with record_function("align.prep"):
-                    prep = self._prep(batch, NQ)
-                with record_function("align.dispatch"):
-                    handles = self._dispatch(prep)
+        def drain(pending) -> None:
+            with record_function("align.finish"):
+                self._finish(read_db, *pending[:2], out, best_per_read)
+            done(len(pending[0][0]), pending[2])
+
+        # software pipeline of the static batches: dispatch batch i+1
+        # before draining batch i; an adaptive batch drains it first
+        pending = None
+        for NQ, static, batch, end_i in batches:
+            if not static:
                 if pending is not None:
-                    with record_function("align.finish"):
-                        self._finish(read_db, *pending[:2], out,
-                                     best_per_read)
-                    done(len(pending[0][0]), pending[2])
-                pending = (prep, handles, end_i)
-            if pending is not None:
-                with record_function("align.finish"):
-                    self._finish(read_db, *pending[:2], out, best_per_read)
-                done(len(pending[0][0]), pending[2])
-        else:
-            for NQ, batch, end_i in batches:
+                    drain(pending)
+                    pending = None
                 self._extend_batch(read_db, batch, NQ, NQ + 2 * W, out,
                                    best_per_read)
                 done(len(batch), end_i)
+                continue
+            with record_function("align.prep"):
+                prep = self._prep(batch, NQ)
+            with record_function("align.dispatch"):
+                handles = self._dispatch(prep)
+            if pending is not None:
+                drain(pending)
+            pending = (prep, handles, end_i)
+        if pending is not None:
+            drain(pending)
         if ck is not None:
             ck.close()
 
@@ -279,6 +279,25 @@ class LongReadAligner:
                 rb=a.rb, re=a.re, rsize=a.rsize,
                 qstr=a.qstr, tstr=a.tstr))
         return out
+
+    def _plan(self, jobs, start: int = 0) -> list:
+        """Batches of ``jobs[start:]`` (sorted by length): one length
+        bucket each, as (NQ, static, batch, end index).  ``static`` says
+        the batch takes the static band: the aligner's band is static and
+        NQ <= STATIC_MAX_NQ (``pallas_ok`` of the JAX package)."""
+        batches = []
+        i = start
+        while i < len(jobs):
+            NQ = _bucket(len(jobs[i][2]))
+            static = self.band == "static" and NQ <= STATIC_MAX_NQ
+            B = self._batch_size(NQ, static)
+            batch = []
+            while i < len(jobs) and len(batch) < B \
+                    and _bucket(len(jobs[i][2])) == NQ:
+                batch.append(jobs[i])
+                i += 1
+            batches.append((NQ, static, batch, i))
+        return batches
 
     def _batch_size(self, NQ: int, static: bool) -> int:
         if static:
@@ -390,7 +409,7 @@ class LongReadAligner:
             self._emit(read_db, rid, cand, codes, score, qstr, tstr,
                        qb, qe, rb, re, out, best_per_read)
 
-    # ---------------- adaptive band (CPU) ----------------
+    # ---------------- adaptive band ----------------
 
     def _extend_batch(self, read_db: SeqDatabase, batch, NQ, NT,
                       out: AlignmentSet, best_per_read) -> None:
@@ -415,17 +434,16 @@ class LongReadAligner:
             c0[b] = cand.diag - ws
             ws_arr[b] = ws
 
-        res = banded_align(q, qlen, t, tlen, c0, W=W,
+        dev = self.device
+        res = banded_align(*(torch.from_numpy(x).to(dev)
+                             for x in (q, qlen, t, tlen, c0)), W=W,
                            match=cfg.match_score,
                            mismatch=cfg.mismatch_score, gap=cfg.gap_score,
                            x_drop=cfg.x_drop)
         moves, _, si, sj = traceback(res.dirs, res.centers, res.best_i,
                                      res.best_j, max_steps=NQ + NT)
-        moves = moves.numpy()
-        centers = res.centers.numpy()
-        scores = res.score.numpy()
-        si = si.numpy()
-        sj = sj.numpy()
+        moves, centers, scores, si, sj = (
+            x.cpu().numpy() for x in (moves, res.centers, res.score, si, sj))
 
         for b, (rid, cand, codes) in enumerate(batch):
             score = int(scores[b])

@@ -15,44 +15,62 @@
 // H_{i-1}[j+1] (NEG past the last column), left = the max-plus chain along
 // the row.  Directions: STOP if max(diag, up) <= 0, else DIAG if
 // diag >= up, else UP; LEFT when the chain raises the cell strictly.  Best
-// cell: per column the running max and the first row reaching it, then the
-// largest score, earliest row, smallest column; all zero when the score is
-// 0.  Output words (B, NQ/16, W) int32: bits 2s, 2s+1 of word w hold row
-// 16w+s+1.
+// cell: the largest score, then the earliest row, then the smallest
+// column; all zero when the score is 0.  Output words (B, NQ/16, W) int32:
+// bits 2s, 2s+1 of word w hold row 16w+s+1.
 //
-// Design: one block per lane, thread j owns band column j, H/bcol/brow in
-// registers.  The up neighbour comes from the next thread by a shuffle; the
-// last thread of a warp rebuilds it from the next warp's first M of the
-// previous row (kept in shared memory): H[32w+32] = max(M[32w+32],
-// H[32w+31] + gap).  The row's gap chain is a 5-step shuffle scan inside
-// each warp plus a shuffle scan over the warp totals, with one
-// __syncthreads per row.  Max-plus over exact integers is associative, so
-// this order gives the Pallas kernel's Kogge-Stone result exactly.  16 rows
-// of codes collect in a register and leave as one coalesced int32 store.
+// Design: one warp per lane, kDpLanes lanes per block; thread l owns the
+// C = W/32 contiguous columns [lC, lC + C) and keeps their H, the 16-row
+// direction words and its own best cell in registers.  The up neighbour
+// of its last column is one __shfl_down of the next thread's first H.
+// The row's gap chain is a serial max-plus prefix over the thread's C
+// columns, a 5-step shuffle scan of the thread totals with weight
+// gap*C*d, and a fix-up v[c] = max(v[c], carry + gap*(c+1)): no barrier
+// and no shared memory per row.  Max-plus over exact integers is
+// associative, so this order gives the Pallas kernel's Kogge-Stone result
+// exactly.  Rows go four at a time: the thread's target window for the
+// four rows (C+3 bytes) and the four query bytes are loaded one step
+// ahead, and __vcmpeq4 compares four columns per instruction.  Each 16
+// rows the C words leave as 16-byte stores, contiguous across the warp.
+// With kDpx the add+max pairs become the Hopper DPX instructions
+// (__viaddmax_s32, __vibmax_s32, whose predicate a >= b is the DIAG/UP
+// bit with DIAG on ties); that build gives the same results but runs
+// about 10% slower on the H100, so the wrapper launches it only when
+// asked (chip_smoke.py times both).
 //
 // x_drop is checked per lane every K rows (the Pallas kernel checks per
 // 128-lane tile): the lane stays alive iff row i+1 <= qlen and (best == 0
-// or max_j H >= best - x_drop).  A dead lane stops; its later words stay
-// unwritten.  rows[b] is the number of rows the lane computed.
+// or max_j H >= best - x_drop).  A dead lane's warp exits, freeing its
+// slot on the SM; its later words stay unwritten.  rows[b] is the number
+// of rows the lane computed.
 //
 // Bound on an H100: operations.  About 20 int32 operations per cell (the
 // serial form of the recurrence) against 2 bits of output per cell, so the
-// integer ALUs are the limit, not the 3.35 TB/s of HBM.  This first
-// version spends more: the scan costs ~2*log2(W) operations per cell and a
-// block barrier per row.
+// integer ALUs are the limit, not the 3.35 TB/s of HBM.  The per-row
+// shuffles (one up neighbour, six for the scan and its carry) are shared
+// by the C cells of a thread.
 //
 // tb_static_kernel replaces traceback_t and traceback_packed_device of
-// aligngraph2_tpu/ops/banded_pallas.py.  One thread per lane walks from
-// (best_i, best_j): DIAG keeps j, UP goes to (i-1, j+1), LEFT to (i, j-1);
-// it stops at STOP, at i == 0 or after max_steps moves, and writes the
-// dense moves END->START (zero padded by the caller), the move count and
-// the cursor where it stopped.  The current 16-row word is kept in a
-// register, so a run of DIAG moves reads memory once per 16 rows.  Bound:
-// the latency of one dependent load per word change; a few bytes per step
-// leave HBM bandwidth idle.
+// aligngraph2_tpu/ops/banded_pallas.py.  It walks from (best_i, best_j):
+// DIAG keeps j, UP goes to (i-1, j+1), LEFT to (i, j-1); it stops at STOP,
+// at i == 0 or after max_steps moves, and writes the dense moves
+// END->START (zero padded by the caller), the move count and the cursor
+// where it stopped.  Bound: the latency of the walk's dependent chain; a
+// few bytes per step leave HBM idle.  Design: one warp per lane,
+// kTbLanes lanes per block.  The warp stages the lane's word rows (all W
+// columns of 16 rows) in shared memory, NS of them (8 at W <= 256, 8 KB
+// a lane), each copied by cp.async NS-1 rows ahead of the walk, so a
+// step's dependent load is a shared-memory load.  A DIAG run is read off
+// one word at once: the count of leading DIAG codes below the current row
+// (one __clz) moves the walk down to the next other code or the word's
+// end.  Every thread of the warp walks the same path, so control flow
+// stays uniform; the moves collect in a 256-byte ring in shared memory
+// (a DIAG run written by as many threads) and leave as coalesced
+// 128-byte stores.
 
 #include <cstddef>
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -63,106 +81,163 @@ constexpr int kDiag = 1;
 constexpr int kUp = 2;
 constexpr int kLeft = 3;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDpLanes = 4;   // DP lanes (warps) per block
+constexpr int kTbLanes = 4;   // traceback lanes (warps) per block
 
-template <int W>
-__global__ void __launch_bounds__(W)
+// max(a + b, c)
+template <bool kDpx>
+__device__ __forceinline__ int add_max(int a, int b, int c) {
+  if constexpr (kDpx) {
+    return __viaddmax_s32(a, b, c);
+  } else {
+    return max(a + b, c);
+  }
+}
+
+// The thread's target bytes t[p .. p+C+2] for four rows starting at row
+// offset p, packed little-endian into NTW words.  For C >= 4, p is a
+// multiple of 4.
+template <int C, int NTW>
+__device__ __forceinline__ void load_window(const uint8_t* __restrict__ row,
+                                            int p, unsigned (&w)[NTW]) {
+  if constexpr (C >= 4) {
+    const unsigned* src = reinterpret_cast<const unsigned*>(row + p);
+#pragma unroll
+    for (int k = 0; k < NTW; ++k) w[k] = __ldg(src + k);
+  } else {
+    w[0] = 0;
+    w[1] = 0;
+#pragma unroll
+    for (int k = 0; k < C + 3; ++k)
+      w[k >> 2] |= (unsigned)__ldg(row + p + k) << (8 * (k & 3));
+  }
+}
+
+template <int W, bool kDpx>
+__global__ void __launch_bounds__(32 * kDpLanes)
 dp_static_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
-                 const int32_t* __restrict__ qlen, int NQ, int K, int match,
-                 int mismatch, int gap, int x_drop,
+                 const int32_t* __restrict__ qlen, int B, int NQ, int K,
+                 int match, int mismatch, int gap, int x_drop,
                  int32_t* __restrict__ score, int32_t* __restrict__ best_i,
                  int32_t* __restrict__ best_j, int32_t* __restrict__ rows,
                  int32_t* __restrict__ words) {
-  constexpr int NW = W / 32;
-  __shared__ int s_tot[2][NW];   // per-warp scan total, by row parity
-  __shared__ int s_m0[2][NW];    // M of each warp's first column, by parity
-  __shared__ int s_red[2][NW];   // x_drop: per-warp max of H and bcol
-  __shared__ unsigned long long s_key[NW];
-
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const int lane = j & 31;
-  const int warp = j >> 5;
-  const uint8_t* qb = q + (size_t)b * NQ;
-  const uint8_t* tb = t + (size_t)b * (NQ + W) + j;
-  int32_t* wb = words + (size_t)b * (NQ / 16) * W + j;
+  constexpr int C = W / 32;                   // columns per thread
+  constexpr int NG = (C + 3) / 4;             // groups of four columns
+  constexpr int NTW = C >= 4 ? C / 4 + 1 : 2; // window words for 4 rows
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kDpLanes + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const int j0 = lane * C;
+  const uint8_t* qrow = q + (size_t)b * NQ;
+  const uint8_t* trow = t + (size_t)b * (NQ + W) + j0;
+  int32_t* wrow = words + (size_t)b * (NQ / 16) * W + j0;
   const int ql = qlen[b];
 
-  if (lane == 0) s_m0[0][warp] = 0;   // row 0 is all zeros
-  __syncthreads();
-
-  int H = 0, bcol = 0, brow = 0;
-  unsigned acc = 0;
+  int H[C];
+  unsigned acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    H[c] = 0;   // row 0 is all zeros
+    acc[c] = 0;
+  }
+  int tbest = 0, trw = 0, tcol = 0;   // this thread's best cell
   int done = NQ;
-  int q_nx = qb[0];
-  int t_nx = tb[0];
-  for (int i = 1; i <= NQ; ++i) {
-    const int p = i & 1;
-    const int qc = q_nx;
-    const int tc = t_nx;
-    if (i < NQ) {            // next row's bases, off the dependent chain
-      q_nx = qb[i];
-      t_nx = tb[i];
+  int check = K;   // next row of the x_drop check
+  unsigned tw[NTW], tn[NTW] = {};
+  load_window<C>(trow, 0, tw);
+  unsigned qw = __ldg(reinterpret_cast<const unsigned*>(qrow)), qn = 0;
+
+  for (int r0 = 0; r0 < NQ; r0 += 4) {
+    if (r0 + 4 < NQ) {        // next step's bases, off the dependent chain
+      load_window<C>(trow, r0 + 4, tn);
+      qn = __ldg(reinterpret_cast<const unsigned*>(qrow + r0 + 4));
     }
-    int up = __shfl_down_sync(kFull, H, 1);
-    if (lane == 31)
-      up = (warp + 1 < NW) ? max(s_m0[p ^ 1][warp + 1], H + gap) : kNeg;
-    const int dv = H + ((tc == qc) ? match : mismatch);
-    const int uv = up + gap;
-    int M = max(dv, uv);
-    int dir = (dv >= uv) ? kDiag : kUp;
-    if (M <= 0) {
-      M = 0;
-      dir = kStop;
-    }
-    int v = M;
+    const int sh = 2 * (r0 & 15);
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, v, d);
-      if (lane >= d) v = max(v, y + gap * d);
-    }
-    if (lane == 31) s_tot[p][warp] = v;
-    if (lane == 0) s_m0[p][warp] = M;
-    __syncthreads();
-    if (NW > 1) {
-      int tv = (lane < NW) ? s_tot[p][lane] : kNeg;
+    for (int rr = 0; rr < 4; ++rr) {
+      const unsigned qrep = __byte_perm(qw, 0, rr * 0x1111);
+      unsigned eq[NG];
 #pragma unroll
-      for (int d = 1; d < NW; d <<= 1) {
-        const int y = __shfl_up_sync(kFull, tv, d);
-        if (lane >= d) tv = max(tv, y + gap * 32 * d);
+      for (int g = 0; g < NG; ++g)
+        eq[g] = __vcmpeq4(rr ? __funnelshift_r(tw[g], tw[g + 1], 8 * rr)
+                             : tw[g], qrep);
+      int up_last = __shfl_down_sync(kFull, H[0], 1);
+      if (lane == 31) up_last = kNeg;
+      const int bit = sh + 2 * rr;
+      int M[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int up = c + 1 < C ? H[c + 1] : up_last;
+        const bool hit = (eq[c >> 2] >> (8 * (c & 3))) & 1u;
+        const int dv = H[c] + (hit ? match : mismatch);
+        const int uv = up + gap;
+        int m;
+        bool dg;
+        if constexpr (kDpx) {
+          m = __vibmax_s32(dv, uv, &dg);
+        } else {
+          m = max(dv, uv);
+          dg = dv >= uv;
+        }
+        M[c] = max(m, 0);
+        const unsigned dir = m > 0 ? (dg ? kDiag : kUp) : kStop;
+        acc[c] |= dir << bit;
       }
-      const int carry = __shfl_sync(kFull, tv, warp > 0 ? warp - 1 : 0);
-      if (warp > 0) v = max(v, carry + gap * (lane + 1));
+      // gap chain: serial prefix, scan of the thread totals, fix-up
+      H[0] = M[0];
+#pragma unroll
+      for (int c = 1; c < C; ++c) H[c] = add_max<kDpx>(H[c - 1], gap, M[c]);
+      int x = H[C - 1];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, d);
+        if (lane >= d) x = add_max<kDpx>(y, gap * C * d, x);
+      }
+      int carry = __shfl_up_sync(kFull, x, 1);
+      if (lane == 0) carry = kNeg;
+      int rk = 0;   // row key: score << 5 | (31 - column)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        H[c] = add_max<kDpx>(carry, gap * (c + 1), H[c]);
+        if (H[c] > M[c]) acc[c] |= (unsigned)kLeft << bit;
+        rk = max(rk, (H[c] << 5) | (31 - c));
+      }
+      if ((rk >> 5) > tbest) {
+        tbest = rk >> 5;
+        trw = r0 + rr + 1;
+        tcol = 31 - (rk & 31);
+      }
     }
-    const int code = (v > M) ? kLeft : dir;
-    if (v > bcol) {
-      bcol = v;
-      brow = i;
-    }
-    acc |= (unsigned)code << (2 * ((i - 1) & 15));
+    const int i = r0 + 4;
     if ((i & 15) == 0) {
-      wb[(size_t)((i - 1) >> 4) * W] = (int)acc;
-      acc = 0;
+      int32_t* dst = wrow + (size_t)((i >> 4) - 1) * W;
+      if constexpr (C % 4 == 0) {
+#pragma unroll
+        for (int g = 0; g < C / 4; ++g)
+          reinterpret_cast<int4*>(dst)[g] =
+              make_int4((int)acc[4 * g], (int)acc[4 * g + 1],
+                        (int)acc[4 * g + 2], (int)acc[4 * g + 3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) dst[c] = (int)acc[c];
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = 0;
     }
-    H = v;
-    if (x_drop > 0 && i % K == 0 && i < NQ) {
-      int f = H, bb = bcol;
+#pragma unroll
+    for (int k = 0; k < NTW; ++k) tw[k] = tn[k];
+    qw = qn;
+    if (i == check && x_drop > 0 && i < NQ) {
+      check += K;
+      int f = H[0], bb = tbest;
+#pragma unroll
+      for (int c = 1; c < C; ++c) f = max(f, H[c]);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
         f = max(f, __shfl_xor_sync(kFull, f, o));
         bb = max(bb, __shfl_xor_sync(kFull, bb, o));
       }
-      if (lane == 0) {
-        s_red[0][warp] = f;
-        s_red[1][warp] = bb;
-      }
-      __syncthreads();
-      int front = kNeg, best = 0;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        front = max(front, s_red[0][w]);
-        best = max(best, s_red[1][w]);
-      }
-      if (!(i + 1 <= ql && (best == 0 || front >= best - x_drop))) {
+      if (!(i + 1 <= ql && (bb == 0 || f >= bb - x_drop))) {
         done = i;
         break;
       }
@@ -171,88 +246,168 @@ dp_static_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
 
   // largest score, then earliest row, then smallest column
   unsigned long long key =
-      ((unsigned long long)(unsigned)bcol << 40) |
-      ((unsigned long long)(0xFFFFFu - (unsigned)brow) << 20) |
-      (unsigned long long)(0xFFFFFu - (unsigned)j);
+      ((unsigned long long)(unsigned)tbest << 40) |
+      ((unsigned long long)(0xFFFFFu - (unsigned)trw) << 20) |
+      (unsigned long long)(0xFFFFFu - (unsigned)(j0 + tcol));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const unsigned long long y = __shfl_xor_sync(kFull, key, o);
     key = y > key ? y : key;
   }
-  if (lane == 0) s_key[warp] = key;
-  __syncthreads();
-  if (j == 0) {
-    unsigned long long k = s_key[0];
-    for (int w = 1; w < NW; ++w) k = s_key[w] > k ? s_key[w] : k;
-    const int S = (int)(k >> 40);
+  if (lane == 0) {
+    const int S = (int)(key >> 40);
     score[b] = S;
-    best_i[b] = S > 0 ? (int)(0xFFFFFu - (unsigned)((k >> 20) & 0xFFFFFu)) : 0;
-    best_j[b] = S > 0 ? (int)(0xFFFFFu - (unsigned)(k & 0xFFFFFu)) : 0;
+    best_i[b] = S > 0 ? (int)(0xFFFFFu - (unsigned)((key >> 20) & 0xFFFFFu))
+                      : 0;
+    best_j[b] = S > 0 ? (int)(0xFFFFFu - (unsigned)(key & 0xFFFFFu)) : 0;
     rows[b] = done;
   }
 }
 
-__global__ void tb_static_kernel(const int32_t* __restrict__ words,
-                                 const int32_t* __restrict__ best_i,
-                                 const int32_t* __restrict__ best_j, int B,
-                                 int NW16, int W, int max_steps,
-                                 uint8_t* __restrict__ moves,
-                                 int32_t* __restrict__ n_out,
-                                 int32_t* __restrict__ si,
-                                 int32_t* __restrict__ sj) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+// Asynchronous copy of word row g (W words) into slot g mod NS of slots,
+// as one cp.async group; an empty group when g < 0, so that the count of
+// groups in flight stays NS - 1.
+template <int NS>
+__device__ __forceinline__ void fetch_word_row(int32_t* slots,
+                                               const int32_t* lane_words,
+                                               int g, int W, int lane) {
+  if (g >= 0) {
+    const int32_t* src = lane_words + (size_t)g * W;
+    int32_t* dst = slots + (g & (NS - 1)) * W;
+    for (int k = 4 * lane; k < W; k += 128)
+      __pipeline_memcpy_async(dst + k, src + k, 16);
+  }
+  __pipeline_commit();
+}
+
+// NS word-row slots per lane: the walk reads row g while rows g-1 ..
+// g-NS+1 are on their way.
+template <int NS>
+__global__ void __launch_bounds__(32 * kTbLanes)
+tb_static_kernel(const int32_t* __restrict__ words,
+                 const int32_t* __restrict__ best_i,
+                 const int32_t* __restrict__ best_j, int B, int NW16, int W,
+                 int max_steps, int stride, uint8_t* __restrict__ moves,
+                 int32_t* __restrict__ n_out, int32_t* __restrict__ si,
+                 int32_t* __restrict__ sj) {
+  // per lane: NS word rows, then a 256-byte ring of moves
+  extern __shared__ int4 s_dyn[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kTbLanes + warp;
   if (b >= B) return;
+  int32_t* slots = reinterpret_cast<int32_t*>(s_dyn) + warp * (NS * W + 64);
+  unsigned* ring = reinterpret_cast<unsigned*>(slots + NS * W);
+  uint8_t* ring8 = reinterpret_cast<uint8_t*>(ring);
   const int32_t* wb = words + (size_t)b * NW16 * W;
-  uint8_t* mb = moves + (size_t)b * max_steps;
-  const bool packed = (max_steps & 3) == 0;   // rows are 4-byte aligned
+  unsigned* mb = reinterpret_cast<unsigned*>(moves + (size_t)b * stride);
   int i = best_i[b];
   int j = best_j[b];
+  ring[lane] = 0;
+  ring[32 + lane] = 0;
+  int g = 0;   // word row being walked
+  if (i > 0) {
+    g = min((i - 1) >> 4, NW16 - 1);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) fetch_word_row<NS>(slots, wb, g - k, W, lane);
+    __pipeline_wait_prior(NS - 1);
+  }
+  __syncwarp();
   int step = 0;
-  int cw = -1, cj = -1;
-  unsigned word = 0, pack = 0;
   while (step < max_steps && i > 0) {
     const int ii = i - 1;
     const int wi = min(ii >> 4, NW16 - 1);
-    const int jj = min(max(j, 0), W - 1);
-    if (wi != cw || jj != cj) {
-      word = (unsigned)wb[(size_t)wi * W + jj];
-      cw = wi;
-      cj = jj;
+    if (wi != g) {   // one word row down
+      __syncwarp();  // slot g is free: start row g - NS into it
+      fetch_word_row<NS>(slots, wb, g - NS, W, lane);
+      __pipeline_wait_prior(NS - 1);
+      __syncwarp();
+      g = wi;
     }
-    const int cur = (int)((word >> (2 * (ii & 15))) & 3u);
+    const unsigned word =
+        (unsigned)slots[(g & (NS - 1)) * W + min(max(j, 0), W - 1)];
+    const int s = ii & 15;
+    const unsigned cur = (word >> (2 * s)) & 3u;
     if (cur == kStop) break;
-    if (packed) {
-      pack |= (unsigned)cur << (8 * (step & 3));
-      if ((step & 3) == 3) {
-        *reinterpret_cast<unsigned*>(mb + step - 3) = pack;
-        pack = 0;
-      }
-    } else {
-      mb[step] = (uint8_t)cur;
+    // a DIAG run goes down this word's column to the first other code
+    int run = 1;
+    if (cur == kDiag) {
+      const unsigned x = (word ^ 0x55555555u) << (30 - 2 * s);
+      run = min(x ? (int)(__clz(x) >> 1) : s + 1, max_steps - step);
     }
+    if (lane < run) ring8[(step + lane) & 255] = (uint8_t)cur;
+    const int next = step + run;
+    if ((next >> 7) != (step >> 7)) {   // 128 moves complete: store them
+      __syncwarp();
+      unsigned* half = ring + ((step >> 7) & 1) * 32;
+      mb[((step >> 7) << 5) + lane] = half[lane];
+      half[lane] = 0;
+    }
+    step = next;
     if (cur == kLeft) {
       --j;
     } else {
-      --i;
+      i -= run;
       if (cur == kUp) ++j;
     }
-    ++step;
   }
-  if (packed && (step & 3))
-    *reinterpret_cast<unsigned*>(mb + (step & ~3)) = pack;
-  n_out[b] = step;
-  si[b] = i;
-  sj[b] = j;
+  // the open block of up to 128 moves
+  __syncwarp();
+  const int base = (step >> 7) << 5;
+  if (base + lane < (step + 3) >> 2)
+    mb[base + lane] = ring[((step >> 7) & 1) * 32 + lane];
+  __pipeline_wait_prior(0);   // no copy outlives the warp
+  if (lane == 0) {
+    n_out[b] = step;
+    si[b] = i;
+    sj[b] = j;
+  }
 }
 
-template <int W>
+template <int NS>
+void launch_tb(const int32_t* words, const int32_t* best_i,
+               const int32_t* best_j, int B, int NW16, int W, int max_steps,
+               int stride, uint8_t* moves, int32_t* n, int32_t* si,
+               int32_t* sj, cudaStream_t s) {
+  const size_t smem = (size_t)kTbLanes * (NS * W + 64) * sizeof(int32_t);
+  tb_static_kernel<NS><<<(B + kTbLanes - 1) / kTbLanes, 32 * kTbLanes, smem,
+                         s>>>(words, best_i, best_j, B, NW16, W, max_steps,
+                              stride, moves, n, si, sj);
+}
+
+template <int W, bool kDpx>
 void launch_dp(const uint8_t* q, const uint8_t* t, const int32_t* qlen,
                int B, int NQ, int K, int match, int mismatch, int gap,
                int x_drop, int32_t* score, int32_t* best_i, int32_t* best_j,
                int32_t* rows, int32_t* words, cudaStream_t s) {
-  dp_static_kernel<W><<<B, W, 0, s>>>(q, t, qlen, NQ, K, match, mismatch,
+  dp_static_kernel<W, kDpx><<<(B + kDpLanes - 1) / kDpLanes, 32 * kDpLanes,
+                              0, s>>>(q, t, qlen, B, NQ, K, match, mismatch,
                                       gap, x_drop, score, best_i, best_j,
                                       rows, words);
+}
+
+template <bool kDpx>
+int launch_dp_w(int W, const uint8_t* q, const uint8_t* t,
+                const int32_t* qlen, int B, int NQ, int K, int match,
+                int mismatch, int gap, int x_drop, int32_t* score,
+                int32_t* best_i, int32_t* best_j, int32_t* rows,
+                int32_t* words, cudaStream_t s) {
+  switch (W) {
+#define AGC_DP_CASE(w)                                                    \
+  case w:                                                                 \
+    launch_dp<w, kDpx>(q, t, qlen, B, NQ, K, match, mismatch, gap, x_drop, \
+                       score, best_i, best_j, rows, words, s);            \
+    return 0;
+    AGC_DP_CASE(32)
+    AGC_DP_CASE(64)
+    AGC_DP_CASE(128)
+    AGC_DP_CASE(256)
+    AGC_DP_CASE(512)
+    AGC_DP_CASE(1024)
+#undef AGC_DP_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -261,7 +416,7 @@ extern "C" {
 
 int agc_dp_static(int device, const void* q, const void* t, const void* qlen,
                   int B, int NQ, int W, int K, int match, int mismatch,
-                  int gap, int x_drop, void* score, void* best_i,
+                  int gap, int x_drop, int dpx, void* score, void* best_i,
                   void* best_j, void* rows, void* words, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -275,37 +430,39 @@ int agc_dp_static(int device, const void* q, const void* t, const void* qlen,
   auto* rw = static_cast<int32_t*>(rows);
   auto* wd = static_cast<int32_t*>(words);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 32: launch_dp<32>(qq, tt, ql, B, NQ, K, match, mismatch, gap,
-                           x_drop, sc, bi, bj, rw, wd, s); break;
-    case 64: launch_dp<64>(qq, tt, ql, B, NQ, K, match, mismatch, gap,
-                           x_drop, sc, bi, bj, rw, wd, s); break;
-    case 128: launch_dp<128>(qq, tt, ql, B, NQ, K, match, mismatch, gap,
-                             x_drop, sc, bi, bj, rw, wd, s); break;
-    case 256: launch_dp<256>(qq, tt, ql, B, NQ, K, match, mismatch, gap,
-                             x_drop, sc, bi, bj, rw, wd, s); break;
-    case 512: launch_dp<512>(qq, tt, ql, B, NQ, K, match, mismatch, gap,
-                             x_drop, sc, bi, bj, rw, wd, s); break;
-    case 1024: launch_dp<1024>(qq, tt, ql, B, NQ, K, match, mismatch, gap,
-                               x_drop, sc, bi, bj, rw, wd, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int code =
+      dpx ? launch_dp_w<true>(W, qq, tt, ql, B, NQ, K, match, mismatch, gap,
+                              x_drop, sc, bi, bj, rw, wd, s)
+          : launch_dp_w<false>(W, qq, tt, ql, B, NQ, K, match, mismatch, gap,
+                               x_drop, sc, bi, bj, rw, wd, s);
+  if (code) return code;
   return (int)cudaGetLastError();
 }
 
 int agc_tb_static(int device, const void* words, const void* best_i,
                   const void* best_j, int B, int NW16, int W, int max_steps,
-                  void* moves, void* n, void* si, void* sj, void* stream) {
+                  int stride, void* moves, void* n, void* si, void* sj,
+                  void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0) return 0;
-  constexpr int kThreads = 32;
-  tb_static_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(words), static_cast<const int32_t*>(best_i),
-      static_cast<const int32_t*>(best_j), B, NW16, W, max_steps,
-      static_cast<uint8_t*>(moves), static_cast<int32_t*>(n),
-      static_cast<int32_t*>(si), static_cast<int32_t*>(sj));
+  if (W < 32 || W > 1024 || (W & (W - 1)) || (stride & 3))
+    return (int)cudaErrorInvalidValue;
+  auto* wd = static_cast<const int32_t*>(words);
+  auto* bi = static_cast<const int32_t*>(best_i);
+  auto* bj = static_cast<const int32_t*>(best_j);
+  auto* mv = static_cast<uint8_t*>(moves);
+  auto* nn = static_cast<int32_t*>(n);
+  auto* ci = static_cast<int32_t*>(si);
+  auto* cj = static_cast<int32_t*>(sj);
+  auto s = static_cast<cudaStream_t>(stream);
+  // 8 KB of word rows per lane: 32 KB of shared memory per block
+  if (W <= 256)
+    launch_tb<8>(wd, bi, bj, B, NW16, W, max_steps, stride, mv, nn, ci, cj, s);
+  else if (W == 512)
+    launch_tb<4>(wd, bi, bj, B, NW16, W, max_steps, stride, mv, nn, ci, cj, s);
+  else
+    launch_tb<2>(wd, bi, bj, B, NW16, W, max_steps, stride, mv, nn, ci, cj, s);
   return (int)cudaGetLastError();
 }
 

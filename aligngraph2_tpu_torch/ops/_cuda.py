@@ -38,10 +38,10 @@ def get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_lib(SRC, nvcc_cmd()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.agc_dp_static.restype = ci
-            lib.agc_dp_static.argtypes = [ci, vp, vp, vp] + [ci] * 8 \
+            lib.agc_dp_static.argtypes = [ci, vp, vp, vp] + [ci] * 9 \
                 + [vp] * 6
             lib.agc_tb_static.restype = ci
-            lib.agc_tb_static.argtypes = [ci, vp, vp, vp] + [ci] * 4 \
+            lib.agc_tb_static.argtypes = [ci, vp, vp, vp] + [ci] * 5 \
                 + [vp] * 5
             lib.agc_error_string.restype = ctypes.c_char_p
             lib.agc_error_string.argtypes = [ci]

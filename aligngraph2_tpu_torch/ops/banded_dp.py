@@ -20,8 +20,11 @@ leading dimension of every tensor and rows are a Python loop.  Out-of-range
 reads reproduce JAX's gather rules (a target read before the window is a
 sentinel; a traceback index wraps when negative, then clamps).
 
-Tensors on the CPU only: the adaptive band on CUDA belongs to the
-multi-GPU extender, which has not been ported yet.
+Both functions run on the device of their inputs, the CPU or a CUDA card
+(numpy inputs go to the CPU), as the JAX package runs them on its default
+backend: torch ops stand in for XLA's.  On a card the row loop launches a
+few dozen small ops per row, so it is slow; the aligner sends it only the
+rare reads past the 65536 bucket.
 """
 
 from __future__ import annotations
@@ -45,11 +48,15 @@ class BandedResult(NamedTuple):
     centers: torch.Tensor   # (B, NQ+1) int32 band center diagonal per row
 
 
-def _cpu_i32(x) -> torch.Tensor:
-    t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-    if t.device.type != "cpu":
-        raise ValueError("the adaptive band runs on CPU tensors only")
-    return t.to(torch.int32)
+def _i32(x, device=None) -> torch.Tensor:
+    """x as an int32 tensor on ``device`` (default: where x is; numpy on
+    the CPU).  Raises for a device other than the CPU or a CUDA card."""
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    dev = t.device if device is None else torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the adaptive band runs on cpu or cuda tensors, "
+                         f"got {dev}")
+    return t.to(device=dev, dtype=torch.int32)
 
 
 def ks_shifts(W: int):
@@ -77,34 +84,36 @@ def banded_align(q, qlen, t, tlen, c0, *, W=256, match=2, mismatch=-4,
         relative to the window start)
     x_drop: > 0 enables per-lane early termination (see module docstring).
     """
-    q = _cpu_i32(q)
-    t = _cpu_i32(t)
-    qlen, tlen, c0 = _cpu_i32(qlen), _cpu_i32(tlen), _cpu_i32(c0)
+    q = _i32(q)
+    dev = q.device
+    t = _i32(t, dev)
+    qlen, tlen, c0 = _i32(qlen, dev), _i32(tlen, dev), _i32(c0, dev)
     B, NQ = q.shape
     NT = t.shape[1]
     PADL = W + 2
     # t_pad as in the JAX package, plus W more sentinels on the left so a
     # read before the window (which JAX answers with a sentinel) indexes
     # in bounds
-    t_pad = torch.cat([torch.full((B, W + PADL), 255, dtype=torch.int32), t,
-                       torch.full((B, W + NQ + 2), 255, dtype=torch.int32)],
-                      dim=1)
+    t_pad = torch.cat([torch.full((B, W + PADL), 255, dtype=torch.int32,
+                                  device=dev), t,
+                       torch.full((B, W + NQ + 2), 255, dtype=torch.int32,
+                                  device=dev)], dim=1)
     L = NT + 2 * W + NQ + 4          # the JAX t_pad length
     xd = x_drop > 0
     c_hi = NT if xd else L
     shifts = ks_shifts(W)
-    j_idx = torch.arange(W, dtype=torch.int32)[None, :]
+    j_idx = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
     p0 = c0[:, None] - W // 2 + j_idx
     H = torch.where((p0 >= 0) & (p0 <= tlen[:, None]), 0, NEG
                     ).to(torch.int32)
     c = c0.clone()
-    best = torch.zeros(B, dtype=torch.int32)
-    b_i = torch.zeros(B, dtype=torch.int32)
-    b_j = torch.zeros(B, dtype=torch.int32)
-    dirs = torch.zeros((B, NQ, W), dtype=torch.uint8)
-    centers = torch.zeros((B, NQ + 1), dtype=torch.int32)
+    best = torch.zeros(B, dtype=torch.int32, device=dev)
+    b_i = torch.zeros(B, dtype=torch.int32, device=dev)
+    b_j = torch.zeros(B, dtype=torch.int32, device=dev)
+    dirs = torch.zeros((B, NQ, W), dtype=torch.uint8, device=dev)
+    centers = torch.zeros((B, NQ + 1), dtype=torch.int32, device=dev)
     centers[:, 0] = c0
-    alive = torch.ones(B, dtype=torch.bool)
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
     jl = j_idx.long()
     for i in range(1, NQ + 1):
         if xd and not bool(alive.any()):
@@ -172,11 +181,12 @@ def traceback(dirs, centers, best_i, best_j, *, max_steps):
     padding.
     """
     B, NQ, W = dirs.shape
-    i = _cpu_i32(best_i).clone()
-    j = _cpu_i32(best_j).clone()
-    lanes = torch.arange(B)
-    active = torch.ones(B, dtype=torch.bool)
-    moves = torch.zeros((B, max_steps), dtype=torch.uint8)
+    dev = dirs.device
+    i = _i32(best_i, dev).clone()
+    j = _i32(best_j, dev).clone()
+    lanes = torch.arange(B, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    moves = torch.zeros((B, max_steps), dtype=torch.uint8, device=dev)
     for step in range(max_steps):
         ii = (i - 1).clamp(min=0)
         cur = dirs[lanes, _jax_index(ii, NQ), _jax_index(j, W)].to(torch.int32)

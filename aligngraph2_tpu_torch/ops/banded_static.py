@@ -176,9 +176,12 @@ def _need(x: torch.Tensor, name: str, dtype, shape) -> None:
 
 
 def banded_dp_static(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
-                     gap=-3, x_drop=0) -> StaticResult:
+                     gap=-3, x_drop=0, dpx=False) -> StaticResult:
     """Static-band DP: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (same arguments as :func:`banded_dp_static_ref`)."""
+    for CPU tensors (same arguments as :func:`banded_dp_static_ref`).
+    ``dpx=True`` launches the kernel's build with the Hopper DPX
+    instructions: the same results, but slower on the H100, so only
+    chip_smoke.py runs it, to time both builds."""
     if q.device.type == "cpu":
         return banded_dp_static_ref(q, t, qlen, W=W, K=K, match=match,
                                     mismatch=mismatch, gap=gap,
@@ -204,7 +207,8 @@ def banded_dp_static(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
     code = lib.agc_dp_static(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         q.data_ptr(), t.data_ptr(), qlen.data_ptr(), B, NQ, W, K, match,
-        mismatch, gap, x_drop, *(o.data_ptr() for o in out),
+        mismatch, gap, x_drop, int(dpx),
+        *(o.data_ptr() for o in out),
         words.data_ptr(), stream)
     _cuda.check(lib, code, "dp_static_kernel launch")
     banded_dp_static.launches += 1
@@ -230,18 +234,20 @@ def traceback_static(words, best_i, best_j, *, max_steps):
         raise ValueError(f"max_steps={max_steps} must be positive")
     lib = _cuda.get_lib()
     dev = words.device
-    moves = torch.zeros((B, max_steps), dtype=torch.uint8, device=dev)
+    # the kernel stores moves as aligned 32-bit words: pad each row to 16
+    stride = -(-max_steps // 16) * 16
+    moves = torch.zeros((B, stride), dtype=torch.uint8, device=dev)
     n, si, sj = (torch.empty(B, dtype=torch.int32, device=dev)
                  for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.agc_tb_static(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         words.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), B, NW, W,
-        max_steps, moves.data_ptr(), n.data_ptr(), si.data_ptr(),
+        max_steps, stride, moves.data_ptr(), n.data_ptr(), si.data_ptr(),
         sj.data_ptr(), stream)
     _cuda.check(lib, code, "tb_static_kernel launch")
     traceback_static.launches += 1
-    return moves, n, si, sj
+    return moves[:, :max_steps], n, si, sj
 
 
 traceback_static.launches = 0

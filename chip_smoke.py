@@ -9,14 +9,22 @@ prints one JSON line per phase:
   card    the card, the build seconds and ptxas' register report;
   gate    each CUDA kernel against its plain torch version on the card, on
           planted lanes (B=1024, NQ=8192; W=256 and 512; x_drop 0 and
-          250): score, best cell, rows run, directions on rows <= best_i,
-          moves, move count and start, all exact; kernel and plain times;
+          250; and the aligner's batch for the 16384 bucket, B=384,
+          W=256, x_drop 250): score, best cell, rows run, directions on
+          rows <= best_i, moves, move count and start, all exact, for both
+          builds of the DP (with and without DPX); the traceback also on
+          random direction words, whose walks hit both band edges; kernel
+          times (both DP builds), plain times, bounds and registers;
   stage   stages 2, 3 (with the seed rescue) and 4 of the pipeline on a
           synthetic PacBio dataset, on CUDA at full width, with walls,
           reads/s, DP cells and alignments; launch counts are zeroed before
           stage 2 and read after stage 4, and each kernel must have run;
   plain   the first 200 reads through the plain versions on the card:
           their .ref text must equal the kernels';
+  long_read one read just past the 65536 bucket through the aligner on
+          CUDA, where it takes the adaptive band as in the JAX package
+          (no static-band launch), and on the CPU: the .ref text must be
+          equal; both walls;
   profile stage 2 again under torch.profiler: host spans, device time
           by kernel, the card's idle share;
   kernels one entry per CUDA kernel with its launches, error, times and
@@ -34,6 +42,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +57,11 @@ DP_OPS_PER_CELL = 20   # serial recurrence: sub, 2 adds, 3 max, 4 selects,
                        # gap chain add+max, best compare+2 selects, pack 2
 TB_OPS_PER_STEP = 8    # word index, shift, mask, compare, 2 updates, store
 GATE_B, GATE_NQ = 1024, 8192   # the aligner's largest batch, PacBio bucket
+# (B, NQ, W, x_drop) of the gate; the kernels line reads the second
+GATE = ((GATE_B, GATE_NQ, 256, 0), (GATE_B, GATE_NQ, 256, 250),
+        (GATE_B, GATE_NQ, 512, 0), (GATE_B, GATE_NQ, 512, 250),
+        (384, 16384, 256, 250))   # the aligner's batch for the 16384 bucket
+LONG_READ_BP = 66000           # past the 65536 bucket
 REPS = 5
 PLAIN_READS = 200
 
@@ -84,8 +98,25 @@ def build_all() -> dict:
         secs = {k: round(f.result(), 3) for k, f in futs.items()}
     with open(lib_path(_cuda.SRC, _cuda.nvcc_cmd()) + ".log") as f:
         ptxas = [ln.strip() for ln in f if "registers" in ln
-                 or "Compiling entry" in ln]
-    return {"build_s": secs, "ptxas": ptxas}
+                 or "Compiling entry" in ln or "spill" in ln]
+    return {"build_s": secs, "ptxas": ptxas, "regs": ptxas_regs(ptxas)}
+
+
+def ptxas_regs(ptxas) -> dict:
+    """{kernel: registers a thread} from ptxas' report, kernels named as
+    dp_static_kernel<W,dpx> and tb_static_kernel<slots>."""
+    regs, name = {}, None
+    for ln in ptxas:
+        m = re.search(r"(dp_static_kernel|tb_static_kernel)I((?:L[ib]\d+E)+)",
+                      ln)
+        if m:
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+            name = f"{m.group(1)}<{args}>"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
 
 
 def planted_lanes(rng, B, NQ, W):
@@ -157,80 +188,112 @@ def tb_bound_ms(n, B, max_steps):
                                    else "bytes")
 
 
-def gate(args) -> dict:
+def random_word_lanes(rng, W, dev, B=64, NQ=1024):
+    """Random direction codes (1% STOP), packed into words, and best cells,
+    a quarter of them at column 0 or W-1: the walks run LEFT past column 0
+    and UP past column W-1."""
+    import numpy as np
+    import torch
+    codes = rng.choice(4, (B, NQ // 16, 16, W), p=[0.01, 0.5, 0.25, 0.24])
+    words = np.zeros((B, NQ // 16, W), np.uint32)
+    for s in range(16):
+        words |= codes[:, :, s, :].astype(np.uint32) << np.uint32(2 * s)
+    bi = rng.integers(0, NQ + 1, B).astype(np.int32)
+    bj = rng.integers(0, W, B).astype(np.int32)
+    bj[::8] = 0
+    bj[1::8] = W - 1
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (words.view(np.int32), bi, bj))
+
+
+def gate(args, regs) -> dict:
     """Kernels against their plain versions; returns the timings at the
-    main path's shape (W=256, x_drop=250)."""
+    kernels line's shape (B=1024, NQ=8192, W=256, x_drop=250)."""
     import numpy as np
     import torch
     from aligngraph2_tpu_torch.ops import banded_static as bs
 
     dev = torch.device("cuda")
-    B, NQ = GATE_B, GATE_NQ
     rng = np.random.default_rng(args.seed)
     err = {"dp": 0, "tb": 0}
     timing = {}
-    for W in (256, 512):
-        q, t, qlen = planted_lanes(rng, B, NQ, W)
-        qd, td, qld = (torch.from_numpy(x).to(dev) for x in (q, t, qlen))
+    shape = None
+    for B, NQ, W, x_drop in GATE:
+        if (B, NQ, W) != shape:   # new lanes; both x_drop share them
+            shape = (B, NQ, W)
+            qd, td, qld = (torch.from_numpy(x).to(dev)
+                           for x in planted_lanes(rng, B, NQ, W))
         max_steps = 2 * NQ + W
-        for x_drop in (0, 250):
-            kw = dict(W=W, x_drop=x_drop)
+        kw = dict(W=W, x_drop=x_drop)
 
-            def run_dp():
-                return bs.banded_dp_static(qd, td, qld, **kw)
+        def run_dp(dpx=False):
+            return bs.banded_dp_static(qd, td, qld, dpx=dpx, **kw)
 
-            res = run_dp()
-            tb = bs.traceback_static(res.words, res.best_i, res.best_j,
-                                     max_steps=max_steps)
-            torch.cuda.synchronize()
-            plain_dp_ms, ref = once_ms(
-                lambda: bs.banded_dp_static_ref(qd, td, qld, **kw))
-            plain_tb_ms, tbr = once_ms(lambda: bs.traceback_static_ref(
-                ref.words, ref.best_i, ref.best_j, max_steps=max_steps))
-            bad = []
+        plain_dp_ms, ref = once_ms(
+            lambda: bs.banded_dp_static_ref(qd, td, qld, **kw))
+        plain_tb_ms, tbr = once_ms(lambda: bs.traceback_static_ref(
+            ref.words, ref.best_i, ref.best_j, max_steps=max_steps))
+        rows_ok = (torch.arange(NQ, device=dev)[None, :]
+                   < ref.best_i[:, None])
+        bad = []
+
+        def differ(key, name, a, r, mask=None):
+            d = (a.int() - r.int()).abs()
+            d = int((d if mask is None else d * mask).max())
+            err[key] = max(err[key], d)
+            if d:
+                bad.append(name)
+
+        for dpx in (False, True):
+            res = run_dp(dpx)
+            tag = "dpx." if dpx else ""
             for name in ("score", "best_i", "best_j", "rows"):
-                d = (getattr(res, name) - getattr(ref, name)).abs().max()
-                err["dp"] = max(err["dp"], int(d))
-                if int(d):
-                    bad.append(name)
-            rows_ok = (torch.arange(NQ, device=dev)[None, :]
-                       < ref.best_i[:, None])
+                differ("dp", tag + name, getattr(res, name),
+                       getattr(ref, name))
             for s in range(0, B, 64):
-                a = bs.unpack_words(res.words[s:s + 64])
-                r = bs.unpack_words(ref.words[s:s + 64])
-                m = rows_ok[s:s + 64, :, None]
-                d = ((a.int() - r.int()).abs() * m).max()
-                err["dp"] = max(err["dp"], int(d))
-                if int(d):
-                    bad.append(f"dirs[{s}:{s + 64}]")
-            for name, a, r in zip(("moves", "n", "si", "sj"), tb, tbr):
-                d = (a.int() - r.int()).abs().max()
-                err["tb"] = max(err["tb"], int(d))
-                if int(d):
-                    bad.append(name)
-            dp_ms = cuda_ms(run_dp, REPS)
-            tb_ms = cuda_ms(lambda: bs.traceback_static(
-                res.words, res.best_i, res.best_j, max_steps=max_steps),
-                REPS)
-            dp_b, dp_by, cells = dp_bound_ms(res, W, NQ)
-            tb_b, tb_by = tb_bound_ms(tb[1], B, max_steps)
-            line = {"phase": "gate", "B": B, "NQ": NQ, "W": W,
-                    "x_drop": x_drop, "exact": not bad, "mismatch": bad,
-                    "dp_cells": cells,
-                    "lanes_stopped_early": int((res.rows < NQ).sum()),
-                    "dp_ms": dp_ms, "dp_plain_ms": plain_dp_ms,
-                    "dp_bound_ms": dp_b, "dp_bound_by": dp_by,
-                    "tb_ms": tb_ms, "tb_plain_ms": plain_tb_ms,
-                    "tb_bound_ms": tb_b, "tb_bound_by": tb_by,
-                    "tb_moves": int(tb[1].sum())}
-            emit(line)
-            if bad:
-                raise SystemExit(f"gate failed at W={W} x_drop={x_drop}: "
-                                 f"{bad}")
-            if W == 256 and x_drop == 250:
-                timing = dict(dp=(dp_ms, plain_dp_ms, dp_b, dp_by),
-                              tb=(tb_ms, plain_tb_ms, tb_b, tb_by))
-            del res, tb, ref, tbr
+                differ("dp", f"{tag}dirs[{s}:{s + 64}]",
+                       bs.unpack_words(res.words[s:s + 64]),
+                       bs.unpack_words(ref.words[s:s + 64]),
+                       rows_ok[s:s + 64, :, None])
+            del res
+        res = run_dp()
+        tb = bs.traceback_static(res.words, res.best_i, res.best_j,
+                                 max_steps=max_steps)
+        for name, a, r in zip(("moves", "n", "si", "sj"), tb, tbr):
+            differ("tb", name, a, r)
+        rw = random_word_lanes(rng, W, dev)
+        rw_steps = 2 * rw[0].shape[1] * 16 + W
+        for name, a, r in zip(
+                ("moves", "n", "si", "sj"),
+                bs.traceback_static(*rw, max_steps=rw_steps),
+                bs.traceback_static_ref(*rw, max_steps=rw_steps)):
+            differ("tb", "random." + name, a, r)
+        dp_ms = cuda_ms(run_dp, REPS)
+        dpx_ms = cuda_ms(lambda: run_dp(True), REPS)
+        tb_ms = cuda_ms(lambda: bs.traceback_static(
+            res.words, res.best_i, res.best_j, max_steps=max_steps), REPS)
+        dp_b, dp_by, cells = dp_bound_ms(res, W, NQ)
+        tb_b, tb_by = tb_bound_ms(tb[1], B, max_steps)
+        emit({"phase": "gate", "B": B, "NQ": NQ, "W": W,
+              "x_drop": x_drop, "exact": not bad, "mismatch": bad,
+              "dp_cells": cells,
+              "lanes_stopped_early": int((res.rows < NQ).sum()),
+              "dp_ms": dp_ms, "dp_dpx_ms": dpx_ms,
+              "dp_plain_ms": plain_dp_ms,
+              "dp_bound_ms": dp_b, "dp_bound_by": dp_by,
+              "tb_ms": tb_ms, "tb_plain_ms": plain_tb_ms,
+              "tb_bound_ms": tb_b, "tb_bound_by": tb_by,
+              "tb_moves": int(tb[1].sum()),
+              "regs": {k: v for k, v in regs.items()
+                       if k.startswith(f"dp_static_kernel<{W},")
+                       or k.startswith("tb_static_kernel")}})
+        if bad:
+            raise SystemExit(f"gate failed at B={B} NQ={NQ} W={W} "
+                             f"x_drop={x_drop}: {bad}")
+        if (B, NQ, W, x_drop) == GATE[1]:
+            timing = dict(dp=(dp_ms, plain_dp_ms, dp_b, dp_by),
+                          tb=(tb_ms, plain_tb_ms, tb_b, tb_by))
+        del res, tb, ref, tbr, rw
     timing["err"] = err
     return timing
 
@@ -342,6 +405,46 @@ def slice_run(args) -> dict:
     return launches
 
 
+def long_read(args) -> None:
+    """One read just past the 65536 bucket, planted in a random genome,
+    through the aligner on CUDA and on the CPU.  On CUDA it must take the
+    adaptive band (no static-band launch), as the JAX package sends such
+    buckets to its adaptive scan; the .ref text must equal the CPU's."""
+    import numpy as np
+    import torch
+    from aligngraph2_tpu_torch.align.aligner import LongReadAligner
+    from aligngraph2_tpu_torch.config import AlignerConfig
+    from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
+    from aligngraph2_tpu_torch.ops import banded_static as bs
+    from tests.synth import mutate, random_genome
+
+    rng = np.random.default_rng(args.seed + 1)
+    genome = random_genome(rng, LONG_READ_BP + 20000)
+    read = mutate(rng, genome[10000:10000 + LONG_READ_BP], 0.02, 0.01, 0.01)
+    assert len(read) > 65536, len(read)
+    reads = SeqDatabase([("long_read", read)])
+    target = SeqDatabase([("genome", genome)])
+    cfg = AlignerConfig()
+    bs.banded_dp_static.launches = 0
+    bs.traceback_static.launches = 0
+    t0 = time.perf_counter()
+    cu = LongReadAligner(target, cfg).align_reads(reads)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu = LongReadAligner(target, cfg, device="cpu").align_reads(reads)
+    t2 = time.perf_counter()
+    static = bs.banded_dp_static.launches + bs.traceback_static.launches
+    same = cu.to_ref_text() == cpu.to_ref_text()
+    emit({"phase": "long_read", "read_bp": len(read), "alignments": len(cu),
+          "aligned_bp": max((a.qe - a.qb for a in cu), default=0),
+          "static_launches": static, "ref_text_equal": same,
+          "cuda_s": t1 - t0, "cpu_s": t2 - t1})
+    if static or not same or not len(cu):
+        raise SystemExit("long read: static-band launches, no alignment "
+                         "or CUDA and CPU .ref text differ")
+    check_records(cu, reads, target)
+
+
 def profile_stage(work) -> None:
     """Stage 2 once more under torch.profiler: the aligner's host spans,
     device time by kernel and the card's idle share of the wall.  The
@@ -391,11 +494,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     card = nvidia_smi()
+    built = build_all()
     emit({"phase": "card", "nvidia_smi": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          **build_all()})
-    timing = gate(args)
+          "torch": torch.__version__, "cuda": torch.version.cuda, **built})
+    timing = gate(args, built["regs"])
     launches = slice_run(args)
+    long_read(args)
     kernels = []
     for name, key, replaces in (
             ("banded_dp_static", "dp",

@@ -129,7 +129,7 @@ def test_static_band_records_spell_their_intervals(dataset):
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     """Without a CUDA device the default raises instead of quietly
-    running on the CPU; the adaptive band refuses anything but the CPU."""
+    running on the CPU; plain=True is refused outside the static band."""
     db = TDB([("g", "ACGT" * 50)])
     cfg = to_port(small_cfg())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -182,4 +182,58 @@ def test_static_band_equals_jax_pallas_path(dataset, monkeypatch):
                               device="cpu", band="static") \
         .align_reads(TDB(reads))
     assert len(got) == 3
+    assert got.to_ref_text() == want.to_ref_text()
+
+
+def _fake_jobs(lengths):
+    """Aligner jobs (rid, cand, codes) sorted by length, as align_reads
+    forms them; only the length of the codes matters to the batch plan."""
+    return [(r, None, np.zeros(n, np.uint8))
+            for r, n in enumerate(sorted(lengths))]
+
+
+@pytest.mark.parametrize("n, static", [(9000, True), (32768, True),
+                                       (65536, True), (65537, False),
+                                       (131072, False)])
+def test_batch_plan_sends_long_buckets_to_adaptive_band(n, static):
+    """Under band="static" a bucket takes the static band up to NQ = 65536
+    and the adaptive band past it, sized as an adaptive batch, as the JAX
+    package decides (pallas_ok, aligngraph2_tpu/align/aligner.py:205)."""
+    db = TDB([("g", "ACGT" * 50)])
+    cfg = small_cfg()
+    al = tal.LongReadAligner(db, to_port(cfg), device="cpu", band="static")
+    jal_al = jal.LongReadAligner(JDB([("g", "ACGT" * 50)]), cfg,
+                                 use_pallas=True)
+    jobs = _fake_jobs([n] * 300)
+    plan = al._plan(jobs)
+    NQ = tal._bucket(n)
+    assert NQ == jal._bucket(n)
+    assert all(p[0] == NQ and p[1] == static for p in plan)
+    assert [len(p[2]) for p in plan][0] == min(
+        300, jal_al._batch_size(NQ, static))
+    assert plan[-1][3] == len(jobs)
+    assert sum(len(p[2]) for p in plan) == len(jobs)
+    # the adaptive band never plans a static batch
+    al.band = "adaptive"
+    assert not any(p[1] for p in al._plan(jobs))
+
+
+@pytest.mark.slow
+def test_read_past_65536_takes_adaptive_band_under_static():
+    """A read just past the 65536 bucket gives the same records under
+    band="static" (plain versions, on the CPU) as under band="adaptive",
+    whose records equal the JAX package's on the CPU: the static aligner
+    routes it to the adaptive band as the JAX package does."""
+    rng = np.random.default_rng(5)
+    genome = random_genome(rng, 86_000)
+    read = mutate(rng, genome[10_000:76_000], 0.02, 0.01, 0.01)
+    assert len(read) > 65536
+    target = TDB([("genome", genome)])
+    reads = TDB([("long_read", read)])
+    cfg = to_port(JConfig())
+    got = tal.LongReadAligner(target, cfg, device="cpu", band="static") \
+        .align_reads(reads)
+    want = tal.LongReadAligner(target, cfg, device="cpu",
+                               band="adaptive").align_reads(reads)
+    assert len(got) >= 1 and got[0].qe - got[0].qb > 60_000
     assert got.to_ref_text() == want.to_ref_text()

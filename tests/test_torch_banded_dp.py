@@ -92,8 +92,8 @@ def test_traceback_truncation_equal_jax():
 
 
 def test_cuda_tensors_rejected():
-    """The adaptive band takes CPU tensors only; a CUDA-side extender is
-    later work, so anything else raises instead of moving data."""
+    """The adaptive band runs on the device of its inputs, the CPU or a
+    CUDA card; any other device raises instead of moving data."""
     q = torch.zeros((1, 16), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError):
         tdp.banded_align(q, [16], q, [16], [0], W=16)

@@ -11,7 +11,9 @@ import torch
 
 from aligngraph2_tpu.io.seqdb import encode_seq, decode_seq
 from aligngraph2_tpu.ops import banded_pallas as jp
+from aligngraph2_tpu_torch.ops import banded_dp as tdp
 from aligngraph2_tpu_torch.ops import banded_static as ts
+from aligngraph2_tpu_torch.ops.banded_dp import DIAG, LEFT, STOP, UP
 from tests.synth import random_genome, mutate
 
 torch.set_num_threads(1)
@@ -204,3 +206,114 @@ def test_xdrop_per_lane_rule_diverges_only_on_recovering_lanes():
     np.testing.assert_array_equal(differ, [1, 3, 5, 7])
     assert (lane.rows.numpy()[differ] <= 80).all()
     assert (lane.rows.numpy()[::2] == nq).all()
+
+
+def _blocked_maxplus_scan(M, gap):
+    """The DP kernel's gap chain, step by step: thread l of the warp owns
+    the C = W/32 columns [lC, lC + C); a serial max-plus prefix over them,
+    a 5-step shuffle scan of the thread totals with weight gap*C*d (lanes
+    below d keep their value, as after __shfl_up_sync), the exclusive carry
+    of the previous thread (NEG for thread 0), then the fix-up
+    v[c] = max(v[c], carry + gap*(c+1))."""
+    R, Wd = M.shape
+    C = Wd // 32
+    v = M.reshape(R, 32, C).clone()
+    for c in range(1, C):
+        v[:, :, c] = torch.maximum(v[:, :, c], v[:, :, c - 1] + gap)
+    lane = torch.arange(32)[None, :]
+    x = v[:, :, C - 1].clone()
+    d = 1
+    while d < 32:
+        y = torch.nn.functional.pad(x[:, :-d], (d, 0), value=tdp.NEG)
+        x = torch.where(lane >= d, torch.maximum(x, y + gap * C * d), x)
+        d <<= 1
+    carry = torch.nn.functional.pad(x[:, :-1], (1, 0), value=tdp.NEG)
+    fix = carry[:, :, None] + gap * (torch.arange(C) + 1)[None, None, :]
+    return torch.maximum(v, fix).reshape(R, Wd)
+
+
+@pytest.mark.parametrize("Wd", [32, 64, 128, 256, 512, 1024])
+def test_blocked_gap_chain_equals_kogge_stone(Wd):
+    """The kernel's blocked gap chain equals the Kogge-Stone max-plus scan
+    of the plain versions (and of the Pallas kernel) exactly, on random
+    rows with runs of zeros and of NEG."""
+    rng = np.random.default_rng(Wd)
+    R = 64
+    M = rng.integers(0, 80, (R, Wd)).astype(np.int32)
+    for r in range(R):
+        a, b = sorted(rng.integers(0, Wd, 2))
+        M[r, a:b] = 0 if r % 2 else tdp.NEG
+    M[rng.random((R, Wd)) < 0.05] = tdp.NEG
+    M[0] = tdp.NEG
+    M[1] = 0
+    M = torch.from_numpy(M)
+    for gap in (-3, -1, -7):
+        want = tdp.maxplus_scan(M, gap, tdp.ks_shifts(Wd))
+        assert torch.equal(_blocked_maxplus_scan(M, gap), want), gap
+
+
+def _words_from_dirs(dirs):
+    """(B, NQ, W) direction codes -> the port's (B, NQ/16, W) int32 words
+    and the Pallas kernel's (NQ/16, W, B) layout."""
+    B, nq, w = dirs.shape
+    d = dirs.astype(np.uint32).reshape(B, nq // 16, 16, w)
+    words = np.zeros((B, nq // 16, w), np.uint32)
+    for s in range(16):
+        words |= d[:, :, s, :] << np.uint32(2 * s)
+    words = words.view(np.int32)
+    return words, np.ascontiguousarray(words.transpose(1, 2, 0))
+
+
+def _edge_case(name, rng):
+    """Direction codes, best cells and max_steps that drive the walk to
+    one edge of the band or of the word layout."""
+    nq, w, B = 64, 32, 4
+    dirs = rng.choice([DIAG] * 6 + [UP, LEFT, STOP], (B, nq, w))
+    bi = np.array([40, 20, 50, 33], np.int32)
+    bj = np.array([5, 3, 9, 17], np.int32)
+    max_steps = 2 * nq + w
+    if name == "left_run_to_col0":
+        dirs[0, 39, 1:6] = LEFT       # left to column 0, then down it
+        dirs[0, :39, 0] = DIAG
+        dirs[1, 19, 0:4] = LEFT       # left past column 0: j < 0 reads col 0
+        dirs[2, 49, :10] = LEFT
+        dirs[2, :49, 0] = UP          # up from column 0
+    elif name == "up_at_last_col":
+        bj[:] = [w - 1, w - 2, w - 1, w - 1]
+        dirs[0, 10:40, w - 1] = UP    # j passes W-1: reads column W-1
+        dirs[1, 19, w - 2] = UP
+        dirs[1, :19, w - 1] = DIAG
+        dirs[2, 49, w - 1] = LEFT
+        dirs[2, 48, w - 2] = UP
+    elif name == "max_steps_cut":
+        dirs = rng.choice([DIAG, UP, LEFT], (B, nq, w))
+        max_steps = 17
+    elif name == "best_i_on_16_boundary":
+        bi[:] = [16, 32, 48, nq]      # the walk starts on bit 30 of a word
+        dirs[:, 15::16, :] = rng.choice([DIAG, UP, LEFT], (B, nq // 16, w))
+    return dirs, bi, bj, max_steps
+
+
+@pytest.mark.parametrize("name", ["left_run_to_col0", "up_at_last_col",
+                                  "max_steps_cut", "best_i_on_16_boundary"])
+def test_traceback_edges_equal_traceback_t(name):
+    """The plain traceback (which the CUDA kernel is held against on the
+    card) against traceback_t where the walk meets an edge: a LEFT run to
+    and past column 0, UP moves at column W-1, a walk cut by max_steps, a
+    start on a 16-row word boundary."""
+    dirs, bi, bj, max_steps = _edge_case(name, np.random.default_rng(3))
+    words, jwords = _words_from_dirs(dirs)
+    want = jp.traceback_t(jwords, bi, bj, max_steps=max_steps,
+                          W=dirs.shape[2])
+    got = ts.traceback_static(torch.from_numpy(words), torch.from_numpy(bi),
+                              torch.from_numpy(bj), max_steps=max_steps)
+    for a, b, what in zip(got, want, ("moves", "n", "si", "sj")):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=what)
+    assert int(got[1].min()) > 0
+    if name == "left_run_to_col0":
+        assert int(got[3][1]) < 0 and int(got[3][0]) == 0
+    if name == "up_at_last_col":
+        assert (got[0][0, :30] == UP).all()   # j runs to W-1 + 30
+    if name == "max_steps_cut":
+        assert (got[1].numpy() == max_steps).all()
