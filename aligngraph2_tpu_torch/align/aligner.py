@@ -24,8 +24,9 @@ Under the static band, buckets past 65536 (reads of 65,537 bp up to
 ``max_read_len``) take the adaptive band on the aligner's device, as the
 JAX package sends them to its adaptive scan (``pallas_ok`` there): the
 static pipeline is drained first, and the batch is sized as an adaptive
-one.  On a card that band is a loop of small torch ops per row, slow but
-rare (about 5e-5 of PacBio reads).
+one.  On a card that band replays CUDA graphs of small torch ops, 64 rows
+at a time: slower than the static band's kernels, and rare (about 5e-5 of
+PacBio reads).
 
 With no CUDA device the default raises; it does not fall back to the CPU.
 A kernel that fails to build or launch raises too.  The host phases run

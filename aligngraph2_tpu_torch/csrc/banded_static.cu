@@ -32,11 +32,7 @@
 // four rows (C+3 bytes) and the four query bytes are loaded one step
 // ahead, and __vcmpeq4 compares four columns per instruction.  Each 16
 // rows the C words leave as 16-byte stores, contiguous across the warp.
-// With kDpx the add+max pairs become the Hopper DPX instructions
-// (__viaddmax_s32, __vibmax_s32, whose predicate a >= b is the DIAG/UP
-// bit with DIAG on ties); that build gives the same results but runs
-// about 10% slower on the H100, so the wrapper launches it only when
-// asked (chip_smoke.py times both).
+// W is 256, 512 or 1024 (C = 8, 16, 32), the widths the aligner forms.
 //
 // x_drop is checked per lane every K rows (the Pallas kernel checks per
 // 128-lane tile): the lane stays alive iff row i+1 <= qlen and (best == 0
@@ -58,8 +54,8 @@
 // where it stopped.  Bound: the latency of the walk's dependent chain; a
 // few bytes per step leave HBM idle.  Design: one warp per lane,
 // kTbLanes lanes per block.  The warp stages the lane's word rows (all W
-// columns of 16 rows) in shared memory, NS of them (8 at W <= 256, 8 KB
-// a lane), each copied by cp.async NS-1 rows ahead of the walk, so a
+// columns of 16 rows) in shared memory, NS of them (8, 4, 2 at W = 256,
+// 512, 1024: 8 KB a lane), each copied by cp.async NS-1 rows ahead of the walk, so a
 // step's dependent load is a shared-memory load.  A DIAG run is read off
 // one word at once: the count of leading DIAG codes below the current row
 // (one __clz) moves the walk down to the next other code or the word's
@@ -84,36 +80,17 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDpLanes = 4;   // DP lanes (warps) per block
 constexpr int kTbLanes = 4;   // traceback lanes (warps) per block
 
-// max(a + b, c)
-template <bool kDpx>
-__device__ __forceinline__ int add_max(int a, int b, int c) {
-  if constexpr (kDpx) {
-    return __viaddmax_s32(a, b, c);
-  } else {
-    return max(a + b, c);
-  }
-}
-
 // The thread's target bytes t[p .. p+C+2] for four rows starting at row
-// offset p, packed little-endian into NTW words.  For C >= 4, p is a
-// multiple of 4.
-template <int C, int NTW>
+// offset p (a multiple of 4), packed little-endian into NTW words.
+template <int NTW>
 __device__ __forceinline__ void load_window(const uint8_t* __restrict__ row,
                                             int p, unsigned (&w)[NTW]) {
-  if constexpr (C >= 4) {
-    const unsigned* src = reinterpret_cast<const unsigned*>(row + p);
+  const unsigned* src = reinterpret_cast<const unsigned*>(row + p);
 #pragma unroll
-    for (int k = 0; k < NTW; ++k) w[k] = __ldg(src + k);
-  } else {
-    w[0] = 0;
-    w[1] = 0;
-#pragma unroll
-    for (int k = 0; k < C + 3; ++k)
-      w[k >> 2] |= (unsigned)__ldg(row + p + k) << (8 * (k & 3));
-  }
+  for (int k = 0; k < NTW; ++k) w[k] = __ldg(src + k);
 }
 
-template <int W, bool kDpx>
+template <int W>
 __global__ void __launch_bounds__(32 * kDpLanes)
 dp_static_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
                  const int32_t* __restrict__ qlen, int B, int NQ, int K,
@@ -121,9 +98,10 @@ dp_static_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
                  int32_t* __restrict__ score, int32_t* __restrict__ best_i,
                  int32_t* __restrict__ best_j, int32_t* __restrict__ rows,
                  int32_t* __restrict__ words) {
-  constexpr int C = W / 32;                   // columns per thread
-  constexpr int NG = (C + 3) / 4;             // groups of four columns
-  constexpr int NTW = C >= 4 ? C / 4 + 1 : 2; // window words for 4 rows
+  constexpr int C = W / 32;        // columns per thread
+  static_assert(C % 4 == 0, "the kernel takes W = 256, 512 or 1024");
+  constexpr int NG = C / 4;        // groups of four columns
+  constexpr int NTW = NG + 1;      // window words for 4 rows
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kDpLanes + (threadIdx.x >> 5);
   if (b >= B) return;
@@ -144,12 +122,12 @@ dp_static_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
   int done = NQ;
   int check = K;   // next row of the x_drop check
   unsigned tw[NTW], tn[NTW] = {};
-  load_window<C>(trow, 0, tw);
+  load_window(trow, 0, tw);
   unsigned qw = __ldg(reinterpret_cast<const unsigned*>(qrow)), qn = 0;
 
   for (int r0 = 0; r0 < NQ; r0 += 4) {
     if (r0 + 4 < NQ) {        // next step's bases, off the dependent chain
-      load_window<C>(trow, r0 + 4, tn);
+      load_window(trow, r0 + 4, tn);
       qn = __ldg(reinterpret_cast<const unsigned*>(qrow + r0 + 4));
     }
     const int sh = 2 * (r0 & 15);
@@ -171,34 +149,27 @@ dp_static_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
         const bool hit = (eq[c >> 2] >> (8 * (c & 3))) & 1u;
         const int dv = H[c] + (hit ? match : mismatch);
         const int uv = up + gap;
-        int m;
-        bool dg;
-        if constexpr (kDpx) {
-          m = __vibmax_s32(dv, uv, &dg);
-        } else {
-          m = max(dv, uv);
-          dg = dv >= uv;
-        }
+        const int m = max(dv, uv);
         M[c] = max(m, 0);
-        const unsigned dir = m > 0 ? (dg ? kDiag : kUp) : kStop;
+        const unsigned dir = m > 0 ? (dv >= uv ? kDiag : kUp) : kStop;
         acc[c] |= dir << bit;
       }
       // gap chain: serial prefix, scan of the thread totals, fix-up
       H[0] = M[0];
 #pragma unroll
-      for (int c = 1; c < C; ++c) H[c] = add_max<kDpx>(H[c - 1], gap, M[c]);
+      for (int c = 1; c < C; ++c) H[c] = max(H[c - 1] + gap, M[c]);
       int x = H[C - 1];
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
         const int y = __shfl_up_sync(kFull, x, d);
-        if (lane >= d) x = add_max<kDpx>(y, gap * C * d, x);
+        if (lane >= d) x = max(y + gap * C * d, x);
       }
       int carry = __shfl_up_sync(kFull, x, 1);
       if (lane == 0) carry = kNeg;
       int rk = 0;   // row key: score << 5 | (31 - column)
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        H[c] = add_max<kDpx>(carry, gap * (c + 1), H[c]);
+        H[c] = max(carry + gap * (c + 1), H[c]);
         if (H[c] > M[c]) acc[c] |= (unsigned)kLeft << bit;
         rk = max(rk, (H[c] << 5) | (31 - c));
       }
@@ -211,16 +182,11 @@ dp_static_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
     const int i = r0 + 4;
     if ((i & 15) == 0) {
       int32_t* dst = wrow + (size_t)((i >> 4) - 1) * W;
-      if constexpr (C % 4 == 0) {
 #pragma unroll
-        for (int g = 0; g < C / 4; ++g)
-          reinterpret_cast<int4*>(dst)[g] =
-              make_int4((int)acc[4 * g], (int)acc[4 * g + 1],
-                        (int)acc[4 * g + 2], (int)acc[4 * g + 3]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < C; ++c) dst[c] = (int)acc[c];
-      }
+      for (int g = 0; g < NG; ++g)
+        reinterpret_cast<int4*>(dst)[g] =
+            make_int4((int)acc[4 * g], (int)acc[4 * g + 1],
+                      (int)acc[4 * g + 2], (int)acc[4 * g + 3]);
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[c] = 0;
     }
@@ -342,6 +308,7 @@ tb_static_kernel(const int32_t* __restrict__ words,
       unsigned* half = ring + ((step >> 7) & 1) * 32;
       mb[((step >> 7) << 5) + lane] = half[lane];
       half[lane] = 0;
+      __syncwarp();  // the zeroed word before other lanes' byte stores
     }
     step = next;
     if (cur == kLeft) {
@@ -375,18 +342,16 @@ void launch_tb(const int32_t* words, const int32_t* best_i,
                               stride, moves, n, si, sj);
 }
 
-template <int W, bool kDpx>
+template <int W>
 void launch_dp(const uint8_t* q, const uint8_t* t, const int32_t* qlen,
                int B, int NQ, int K, int match, int mismatch, int gap,
                int x_drop, int32_t* score, int32_t* best_i, int32_t* best_j,
                int32_t* rows, int32_t* words, cudaStream_t s) {
-  dp_static_kernel<W, kDpx><<<(B + kDpLanes - 1) / kDpLanes, 32 * kDpLanes,
-                              0, s>>>(q, t, qlen, B, NQ, K, match, mismatch,
-                                      gap, x_drop, score, best_i, best_j,
-                                      rows, words);
+  dp_static_kernel<W><<<(B + kDpLanes - 1) / kDpLanes, 32 * kDpLanes, 0,
+                        s>>>(q, t, qlen, B, NQ, K, match, mismatch, gap,
+                             x_drop, score, best_i, best_j, rows, words);
 }
 
-template <bool kDpx>
 int launch_dp_w(int W, const uint8_t* q, const uint8_t* t,
                 const int32_t* qlen, int B, int NQ, int K, int match,
                 int mismatch, int gap, int x_drop, int32_t* score,
@@ -395,12 +360,9 @@ int launch_dp_w(int W, const uint8_t* q, const uint8_t* t,
   switch (W) {
 #define AGC_DP_CASE(w)                                                    \
   case w:                                                                 \
-    launch_dp<w, kDpx>(q, t, qlen, B, NQ, K, match, mismatch, gap, x_drop, \
-                       score, best_i, best_j, rows, words, s);            \
+    launch_dp<w>(q, t, qlen, B, NQ, K, match, mismatch, gap, x_drop,      \
+                 score, best_i, best_j, rows, words, s);                  \
     return 0;
-    AGC_DP_CASE(32)
-    AGC_DP_CASE(64)
-    AGC_DP_CASE(128)
     AGC_DP_CASE(256)
     AGC_DP_CASE(512)
     AGC_DP_CASE(1024)
@@ -416,7 +378,7 @@ extern "C" {
 
 int agc_dp_static(int device, const void* q, const void* t, const void* qlen,
                   int B, int NQ, int W, int K, int match, int mismatch,
-                  int gap, int x_drop, int dpx, void* score, void* best_i,
+                  int gap, int x_drop, void* score, void* best_i,
                   void* best_j, void* rows, void* words, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -430,11 +392,8 @@ int agc_dp_static(int device, const void* q, const void* t, const void* qlen,
   auto* rw = static_cast<int32_t*>(rows);
   auto* wd = static_cast<int32_t*>(words);
   auto s = static_cast<cudaStream_t>(stream);
-  const int code =
-      dpx ? launch_dp_w<true>(W, qq, tt, ql, B, NQ, K, match, mismatch, gap,
-                              x_drop, sc, bi, bj, rw, wd, s)
-          : launch_dp_w<false>(W, qq, tt, ql, B, NQ, K, match, mismatch, gap,
-                               x_drop, sc, bi, bj, rw, wd, s);
+  const int code = launch_dp_w(W, qq, tt, ql, B, NQ, K, match, mismatch,
+                               gap, x_drop, sc, bi, bj, rw, wd, s);
   if (code) return code;
   return (int)cudaGetLastError();
 }
@@ -446,7 +405,7 @@ int agc_tb_static(int device, const void* words, const void* best_i,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0) return 0;
-  if (W < 32 || W > 1024 || (W & (W - 1)) || (stride & 3))
+  if ((W != 256 && W != 512 && W != 1024) || (stride & 3))
     return (int)cudaErrorInvalidValue;
   auto* wd = static_cast<const int32_t*>(words);
   auto* bi = static_cast<const int32_t*>(best_i);
@@ -457,7 +416,7 @@ int agc_tb_static(int device, const void* words, const void* best_i,
   auto* cj = static_cast<int32_t*>(sj);
   auto s = static_cast<cudaStream_t>(stream);
   // 8 KB of word rows per lane: 32 KB of shared memory per block
-  if (W <= 256)
+  if (W == 256)
     launch_tb<8>(wd, bi, bj, B, NW16, W, max_steps, stride, mv, nn, ci, cj, s);
   else if (W == 512)
     launch_tb<4>(wd, bi, bj, B, NW16, W, max_steps, stride, mv, nn, ci, cj, s);

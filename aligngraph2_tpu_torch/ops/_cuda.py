@@ -38,7 +38,7 @@ def get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_lib(SRC, nvcc_cmd()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.agc_dp_static.restype = ci
-            lib.agc_dp_static.argtypes = [ci, vp, vp, vp] + [ci] * 9 \
+            lib.agc_dp_static.argtypes = [ci, vp, vp, vp] + [ci] * 8 \
                 + [vp] * 6
             lib.agc_tb_static.restype = ci
             lib.agc_tb_static.argtypes = [ci, vp, vp, vp] + [ci] * 5 \

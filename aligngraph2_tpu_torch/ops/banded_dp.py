@@ -22,9 +22,11 @@ sentinel; a traceback index wraps when negative, then clamps).
 
 Both functions run on the device of their inputs, the CPU or a CUDA card
 (numpy inputs go to the CPU), as the JAX package runs them on its default
-backend: torch ops stand in for XLA's.  On a card the row loop launches a
-few dozen small ops per row, so it is slow; the aligner sends it only the
-rare reads past the 65536 bucket.
+backend: torch ops stand in for XLA's.  Each DP row and each traceback
+move is a few dozen small ops, so on a card both loops replay a CUDA graph
+of 64 rows or moves at a time (``_loop``), and ask whether a lane is still
+alive only between graphs.  The aligner sends this band only the rare
+reads past the 65536 bucket.
 """
 
 from __future__ import annotations
@@ -104,66 +106,124 @@ def banded_align(q, qlen, t, tlen, c0, *, W=256, match=2, mismatch=-4,
     shifts = ks_shifts(W)
     j_idx = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
     p0 = c0[:, None] - W // 2 + j_idx
-    H = torch.where((p0 >= 0) & (p0 <= tlen[:, None]), 0, NEG
-                    ).to(torch.int32)
-    c = c0.clone()
-    best = torch.zeros(B, dtype=torch.int32, device=dev)
-    b_i = torch.zeros(B, dtype=torch.int32, device=dev)
-    b_j = torch.zeros(B, dtype=torch.int32, device=dev)
     dirs = torch.zeros((B, NQ, W), dtype=torch.uint8, device=dev)
     centers = torch.zeros((B, NQ + 1), dtype=torch.int32, device=dev)
     centers[:, 0] = c0
-    alive = torch.ones(B, dtype=torch.bool, device=dev)
-    jl = j_idx.long()
-    for i in range(1, NQ + 1):
-        if xd and not bool(alive.any()):
-            break
-        row_max = H.amax(dim=1)
-        # torch.argmax, like jnp.argmax, returns the first maximum
-        drift = H.argmax(dim=1).to(torch.int32) - W // 2
-        dc = torch.where(row_max > 0, drift.clamp(-1, 1), 0).to(torch.int32)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    S = dict(H=torch.where((p0 >= 0) & (p0 <= tlen[:, None]), 0, NEG
+                           ).to(torch.int32),
+             c=c0.clone(), best=zeros, b_i=zeros.clone(), b_j=zeros.clone(),
+             alive=torch.ones(B, dtype=torch.bool, device=dev),
+             # the last row each lane started alive: rows after the last
+             # of them froze every lane, and their centers are undone
+             # after the loop
+             last=zeros.clone(),
+             i=torch.ones((), dtype=torch.int32, device=dev))   # next row
+    # gather columns: diag and up of padded H (diag = du[:, :W], up =
+    # du[:, 1:]), and the target window's W cells
+    du_idx = torch.arange(1, W + 2, device=dev)[None, :]
+    t_idx = j_idx.long() + W
+    # 0-d tensors keep the row's values int32 and its codes uint8
+    match_t, mismatch_t = (torch.tensor(x, dtype=torch.int32, device=dev)
+                           for x in (match, mismatch))
+    diag8, up8 = (torch.tensor(x, dtype=torch.uint8, device=dev)
+                  for x in (DIAG, UP))
+
+    def row(S):
+        """DP row S["i"]: the next state; writes the row's dirs and
+        center.  The row index is a tensor, so a CUDA graph can replay
+        it."""
+        i, H, c, alive = S["i"], S["H"], S["c"], S["alive"]
+        i1 = (i - 1).long().view(1)
+        # torch.max, like jnp.argmax, returns the first maximum
+        row_max, arg = H.max(dim=1)
+        drift = arg.to(torch.int32) - W // 2
+        dc = torch.where(row_max > 0, drift.clamp(-1, 1), 0)
         c_new = (c + dc).clamp(-W, c_hi)
         padded = torch.nn.functional.pad(H, (1, 2), value=NEG)
-        diag_vals = padded.gather(1, (dc[:, None] + 1 + jl).long())
-        up_vals = padded.gather(1, (dc[:, None] + 2 + jl).long())
-        start = (i - 1) + c_new + (PADL - W // 2)
+        du = padded.gather(1, dc[:, None] + du_idx)
+        start = c_new + (i + (PADL - W // 2 - 1))
         if not xd:
             # dynamic_slice clamps the start into [0, L - W]
             start = start.clamp(0, L - W)
-        t_slice = t_pad.gather(1, (start[:, None] + W + jl).long())
-        sub = torch.where(t_slice == q[:, i - 1:i], match, mismatch)
-        d_v = diag_vals + sub
-        u_v = up_vals + gap
+        t_slice = t_pad.gather(1, start[:, None] + t_idx)
+        q_col = q.gather(1, i1.expand(B, 1))
+        sub = torch.where(t_slice == q_col, match_t, mismatch_t)
+        d_v = du[:, :W] + sub
+        u_v = du[:, 1:] + gap
         M = torch.maximum(d_v, u_v)
-        m_dir = torch.where(d_v >= u_v, DIAG, UP)
+        m_dir = torch.where(d_v >= u_v, diag8, up8)
         m_dir = torch.where(M > 0, m_dir, STOP)
         M = M.clamp(min=0)
         Hn = maxplus_scan(M, gap, shifts)
         row_dirs = torch.where(Hn > M, LEFT, m_dir)
-        p = i + c_new[:, None] - W // 2 + j_idx
+        p = c_new[:, None] + (j_idx + (i - W // 2))
         ok = (p >= 0) & (p <= tlen[:, None]) & (i <= qlen[:, None])
-        Hn = torch.where(ok, Hn, NEG).to(torch.int32)
+        Hn = torch.where(ok, Hn, NEG)
         row_dirs = torch.where(ok, row_dirs, STOP)
         if xd:
             # dead lanes freeze: state unchanged, dirs stay STOP
             Hn = torch.where(alive[:, None], Hn, H)
             c_new = torch.where(alive, c_new, c)
             row_dirs = torch.where(alive[:, None], row_dirs, STOP)
-        r_max = Hn.amax(dim=1)
-        r_arg = Hn.argmax(dim=1).to(torch.int32)
-        upd = r_max > best
+        r_max, r_arg = Hn.max(dim=1)
+        upd = r_max > S["best"]
         if xd:
             upd = upd & alive
-        best = torch.where(upd, r_max, best)
-        b_i = torch.where(upd, i, b_i).to(torch.int32)
-        b_j = torch.where(upd, r_arg, b_j)
-        dirs[:, i - 1] = row_dirs.to(torch.uint8)
-        centers[:, i] = c_new
+        dirs.index_copy_(1, i1, row_dirs[:, None])
+        centers.index_copy_(1, i1 + 1, c_new[:, None])
+        nxt = dict(S, H=Hn, c=c_new, i=i + 1,
+                   best=torch.where(upd, r_max, S["best"]),
+                   b_i=torch.where(upd, i, S["b_i"]),
+                   b_j=torch.where(upd, r_arg.to(torch.int32), S["b_j"]))
         if xd:
-            alive = alive & (i < qlen) \
-                & ((best == 0) | (r_max >= best - x_drop))
-        H, c = Hn, c_new
-    return BandedResult(best, b_i, b_j, dirs, centers)
+            nxt["last"] = torch.where(alive, i, S["last"])
+            nxt["alive"] = alive & (i < qlen) \
+                & ((nxt["best"] == 0) | (r_max >= nxt["best"] - x_drop))
+        return nxt
+
+    # the JAX while_loop stops once no lane is alive; asking every 64 rows
+    # gives the same result, since a dead lane is frozen
+    _loop(row, S, NQ, lambda S: xd and not bool(S["alive"].any()))
+    if xd:
+        centers[:, int(S["last"].max()) + 1:] = 0
+    return BandedResult(S["best"], S["b_i"], S["b_j"], dirs, centers)
+
+
+CHUNK = 64
+
+
+def _loop(step, S, n, stop) -> None:
+    """S = step(S), n times, stopping early where stop(S) says so, asked
+    before every CHUNK steps.  S's tensors are updated in place, a chunk
+    of steps at a time.  On a card each step is a few dozen small ops, so
+    after one chunk run eagerly (which readies every op) a chunk is
+    captured once as a CUDA graph and replayed: one launch for CHUNK
+    steps instead of thousands."""
+
+    def steps(m):
+        T = S
+        for _ in range(m):
+            T = step(T)
+        for k, v in S.items():
+            v.copy_(T[k])
+
+    on_card = next(iter(S.values())).is_cuda
+    graph = None
+    done = 0
+    while done < n:
+        if done % CHUNK == 0 and stop(S):
+            break
+        m = min(CHUNK, n - done)
+        if on_card and m == CHUNK and done:
+            if graph is None:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    steps(CHUNK)
+            graph.replay()
+        else:
+            steps(m)
+        done += m
 
 
 def _jax_index(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -182,27 +242,33 @@ def traceback(dirs, centers, best_i, best_j, *, max_steps):
     """
     B, NQ, W = dirs.shape
     dev = dirs.device
-    i = _i32(best_i, dev).clone()
-    j = _i32(best_j, dev).clone()
     lanes = torch.arange(B, device=dev)
-    active = torch.ones(B, dtype=torch.bool, device=dev)
     moves = torch.zeros((B, max_steps), dtype=torch.uint8, device=dev)
-    for step in range(max_steps):
+
+    def walk(S):
+        """One move of every lane, written at column S["step"]."""
+        i, j, active = S["i"], S["j"], S["active"]
         ii = (i - 1).clamp(min=0)
-        cur = dirs[lanes, _jax_index(ii, NQ), _jax_index(j, W)].to(torch.int32)
+        iil = ii.long()   # >= 0: JAX's rule is only its upper clamp
+        cur = dirs[lanes, iil.clamp(max=NQ - 1), _jax_index(j, W)
+                   ].to(torch.int32)
         cur = torch.where(active & (i > 0), cur, STOP)
         dc = centers[lanes, _jax_index(i, NQ + 1)] \
-            - centers[lanes, _jax_index(ii, NQ + 1)]
+            - centers[lanes, iil.clamp(max=NQ)]
         ni = torch.where(cur == LEFT, i, i - 1)
         nj = torch.where(cur == LEFT, j - 1,
                          torch.where(cur == DIAG, j + dc, j + dc + 1))
         live = active & (cur != STOP)
-        i = torch.where(live, ni, i)
-        j = torch.where(live, nj, j)
-        active = live
-        moves[:, step] = cur.to(torch.uint8)
-        if step % 64 == 63 and not bool(active.any()):
-            break
+        moves.index_copy_(1, S["step"].long().view(1),
+                          cur.to(torch.uint8)[:, None])
+        return dict(i=torch.where(live, ni, i), j=torch.where(live, nj, j),
+                    active=live, step=S["step"] + 1)
+
+    S = dict(i=_i32(best_i, dev).clone(), j=_i32(best_j, dev).clone(),
+             active=torch.ones(B, dtype=torch.bool, device=dev),
+             step=torch.zeros((), dtype=torch.int32, device=dev))
+    _loop(walk, S, max_steps, lambda S: not bool(S["active"].any()))
+    i, j = S["i"], S["j"]
     n = (moves != 0).sum(dim=1, dtype=torch.int32)
     return moves, n, i, j
 

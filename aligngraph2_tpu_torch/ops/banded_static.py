@@ -52,6 +52,9 @@ from .banded_dp import DIAG, LEFT, NEG, STOP, UP, ks_shifts, maxplus_scan
 
 Q_SENTINEL = 254
 T_SENTINEL = 255
+# the band widths the CUDA kernels take: those the aligner forms,
+# max(band_width, 256) for a power-of-two band_width up to 1024
+KERNEL_WIDTHS = (256, 512, 1024)
 
 
 class StaticResult(NamedTuple):
@@ -175,13 +178,16 @@ def _need(x: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _need_width(W: int) -> None:
+    if W not in KERNEL_WIDTHS:
+        raise ValueError(f"W={W}: the kernels take W in {KERNEL_WIDTHS}")
+
+
 def banded_dp_static(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
-                     gap=-3, x_drop=0, dpx=False) -> StaticResult:
+                     gap=-3, x_drop=0) -> StaticResult:
     """Static-band DP: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (same arguments as :func:`banded_dp_static_ref`).
-    ``dpx=True`` launches the kernel's build with the Hopper DPX
-    instructions: the same results, but slower on the H100, so only
-    chip_smoke.py runs it, to time both builds."""
+    The kernel takes W in :data:`KERNEL_WIDTHS`."""
     if q.device.type == "cpu":
         return banded_dp_static_ref(q, t, qlen, W=W, K=K, match=match,
                                     mismatch=mismatch, gap=gap,
@@ -190,15 +196,13 @@ def banded_dp_static(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
     B, NQ = q.shape
     if qlen is None:
         qlen = torch.full((B,), NQ, dtype=torch.int32, device=q.device)
-    if W not in (32, 64, 128, 256, 512, 1024):
-        raise ValueError(f"W={W}: the kernel takes W in 32..1024, a power "
-                         f"of two")
-    if NQ % 16 or K % 16 or K <= 0 or NQ >= 1 << 20 or x_drop < 0:
-        raise ValueError(f"NQ={NQ}, K={K}, x_drop={x_drop}: need NQ and K "
-                         f"multiples of 16, NQ < 2^20, x_drop >= 0")
     _need(q, "q", torch.uint8, (B, NQ))
     _need(t, "t", torch.uint8, (B, NQ + W))
     _need(qlen, "qlen", torch.int32, (B,))
+    _need_width(W)
+    if NQ % 16 or K % 16 or K <= 0 or NQ >= 1 << 20 or x_drop < 0:
+        raise ValueError(f"NQ={NQ}, K={K}, x_drop={x_drop}: need NQ and K "
+                         f"multiples of 16, NQ < 2^20, x_drop >= 0")
     lib = _cuda.get_lib()
     dev = q.device
     out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4)]
@@ -207,8 +211,7 @@ def banded_dp_static(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
     code = lib.agc_dp_static(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         q.data_ptr(), t.data_ptr(), qlen.data_ptr(), B, NQ, W, K, match,
-        mismatch, gap, x_drop, int(dpx),
-        *(o.data_ptr() for o in out),
+        mismatch, gap, x_drop, *(o.data_ptr() for o in out),
         words.data_ptr(), stream)
     _cuda.check(lib, code, "dp_static_kernel launch")
     banded_dp_static.launches += 1
@@ -230,6 +233,7 @@ def traceback_static(words, best_i, best_j, *, max_steps):
     _need(words, "words", torch.int32, (B, NW, W))
     _need(best_i, "best_i", torch.int32, (B,))
     _need(best_j, "best_j", torch.int32, (B,))
+    _need_width(W)
     if max_steps <= 0:
         raise ValueError(f"max_steps={max_steps} must be positive")
     lib = _cuda.get_lib()

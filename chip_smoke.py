@@ -9,12 +9,12 @@ prints one JSON line per phase:
   card    the card, the build seconds and ptxas' register report;
   gate    each CUDA kernel against its plain torch version on the card, on
           planted lanes (B=1024, NQ=8192; W=256 and 512; x_drop 0 and
-          250; and the aligner's batch for the 16384 bucket, B=384,
-          W=256, x_drop 250): score, best cell, rows run, directions on
-          rows <= best_i, moves, move count and start, all exact, for both
-          builds of the DP (with and without DPX); the traceback also on
-          random direction words, whose walks hit both band edges; kernel
-          times (both DP builds), plain times, bounds and registers;
+          250; the aligner's batch for the 16384 bucket, B=384, W=256,
+          x_drop 250; and W=1024 on B=256, NQ=4096): score, best cell,
+          rows run, directions on rows <= best_i, moves, move count and
+          start, all exact; the traceback also on random direction words,
+          whose walks hit both band edges; kernel times, plain times,
+          bounds and registers;
   stage   stages 2, 3 (with the seed rescue) and 4 of the pipeline on a
           synthetic PacBio dataset, on CUDA at full width, with walls,
           reads/s, DP cells and alignments; launch counts are zeroed before
@@ -23,8 +23,9 @@ prints one JSON line per phase:
           their .ref text must equal the kernels';
   long_read one read just past the 65536 bucket through the aligner on
           CUDA, where it takes the adaptive band as in the JAX package
-          (no static-band launch), and on the CPU: the .ref text must be
-          equal; both walls;
+          (no static-band launch), and on the CPU in a child process
+          started with the plain phase: the .ref text must be equal;
+          both walls;
   profile stage 2 again under torch.profiler: host spans, device time
           by kernel, the card's idle share;
   kernels one entry per CUDA kernel with its launches, error, times and
@@ -41,6 +42,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -60,7 +62,8 @@ GATE_B, GATE_NQ = 1024, 8192   # the aligner's largest batch, PacBio bucket
 # (B, NQ, W, x_drop) of the gate; the kernels line reads the second
 GATE = ((GATE_B, GATE_NQ, 256, 0), (GATE_B, GATE_NQ, 256, 250),
         (GATE_B, GATE_NQ, 512, 0), (GATE_B, GATE_NQ, 512, 250),
-        (384, 16384, 256, 250))   # the aligner's batch for the 16384 bucket
+        (384, 16384, 256, 250),   # the aligner's batch for the 16384 bucket
+        (256, 4096, 1024, 250))   # the widest band the kernels take
 LONG_READ_BP = 66000           # past the 65536 bucket
 REPS = 5
 PLAIN_READS = 200
@@ -104,7 +107,7 @@ def build_all() -> dict:
 
 def ptxas_regs(ptxas) -> dict:
     """{kernel: registers a thread} from ptxas' report, kernels named as
-    dp_static_kernel<W,dpx> and tb_static_kernel<slots>."""
+    dp_static_kernel<W> and tb_static_kernel<slots>."""
     regs, name = {}, None
     for ln in ptxas:
         m = re.search(r"(dp_static_kernel|tb_static_kernel)I((?:L[ib]\d+E)+)",
@@ -226,8 +229,8 @@ def gate(args, regs) -> dict:
         max_steps = 2 * NQ + W
         kw = dict(W=W, x_drop=x_drop)
 
-        def run_dp(dpx=False):
-            return bs.banded_dp_static(qd, td, qld, dpx=dpx, **kw)
+        def run_dp():
+            return bs.banded_dp_static(qd, td, qld, **kw)
 
         plain_dp_ms, ref = once_ms(
             lambda: bs.banded_dp_static_ref(qd, td, qld, **kw))
@@ -244,24 +247,19 @@ def gate(args, regs) -> dict:
             if d:
                 bad.append(name)
 
-        for dpx in (False, True):
-            res = run_dp(dpx)
-            tag = "dpx." if dpx else ""
-            for name in ("score", "best_i", "best_j", "rows"):
-                differ("dp", tag + name, getattr(res, name),
-                       getattr(ref, name))
-            for s in range(0, B, 64):
-                differ("dp", f"{tag}dirs[{s}:{s + 64}]",
-                       bs.unpack_words(res.words[s:s + 64]),
-                       bs.unpack_words(ref.words[s:s + 64]),
-                       rows_ok[s:s + 64, :, None])
-            del res
         res = run_dp()
+        for name in ("score", "best_i", "best_j", "rows"):
+            differ("dp", name, getattr(res, name), getattr(ref, name))
+        for s in range(0, B, 64):
+            differ("dp", f"dirs[{s}:{s + 64}]",
+                   bs.unpack_words(res.words[s:s + 64]),
+                   bs.unpack_words(ref.words[s:s + 64]),
+                   rows_ok[s:s + 64, :, None])
         tb = bs.traceback_static(res.words, res.best_i, res.best_j,
                                  max_steps=max_steps)
         for name, a, r in zip(("moves", "n", "si", "sj"), tb, tbr):
             differ("tb", name, a, r)
-        rw = random_word_lanes(rng, W, dev)
+        rw = random_word_lanes(rng, W, dev, B=min(64, 32768 // W))
         rw_steps = 2 * rw[0].shape[1] * 16 + W
         for name, a, r in zip(
                 ("moves", "n", "si", "sj"),
@@ -269,7 +267,6 @@ def gate(args, regs) -> dict:
                 bs.traceback_static_ref(*rw, max_steps=rw_steps)):
             differ("tb", "random." + name, a, r)
         dp_ms = cuda_ms(run_dp, REPS)
-        dpx_ms = cuda_ms(lambda: run_dp(True), REPS)
         tb_ms = cuda_ms(lambda: bs.traceback_static(
             res.words, res.best_i, res.best_j, max_steps=max_steps), REPS)
         dp_b, dp_by, cells = dp_bound_ms(res, W, NQ)
@@ -278,14 +275,13 @@ def gate(args, regs) -> dict:
               "x_drop": x_drop, "exact": not bad, "mismatch": bad,
               "dp_cells": cells,
               "lanes_stopped_early": int((res.rows < NQ).sum()),
-              "dp_ms": dp_ms, "dp_dpx_ms": dpx_ms,
-              "dp_plain_ms": plain_dp_ms,
+              "dp_ms": dp_ms, "dp_plain_ms": plain_dp_ms,
               "dp_bound_ms": dp_b, "dp_bound_by": dp_by,
               "tb_ms": tb_ms, "tb_plain_ms": plain_tb_ms,
               "tb_bound_ms": tb_b, "tb_bound_by": tb_by,
               "tb_moves": int(tb[1].sum()),
               "regs": {k: v for k, v in regs.items()
-                       if k.startswith(f"dp_static_kernel<{W},")
+                       if k == f"dp_static_kernel<{W}>"
                        or k.startswith("tb_static_kernel")}})
         if bad:
             raise SystemExit(f"gate failed at B={B} NQ={NQ} W={W} "
@@ -311,8 +307,10 @@ def check_records(alns, qdb, tdb, limit=300):
         assert a.qstr.replace("-", "") == qs[lo:hi], a.query_name
 
 
-def slice_run(args) -> dict:
-    """Stages 2-4 on CUDA; returns the main path's launch counts."""
+def slice_run(args, pool):
+    """Stages 2-4 on CUDA; returns the main path's launch counts and the
+    future of the long read's CPU half, started in ``pool`` with the
+    plain phase."""
     from aligngraph2_tpu_torch.align.aligner import LongReadAligner
     from aligngraph2_tpu_torch.config import AlignerConfig
     from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
@@ -388,6 +386,9 @@ def slice_run(args) -> dict:
     check_records(r2r, reads, refs)
     check_records(c2r, ctgs, refs)
 
+    # the long read's CPU half runs in a child process from here on,
+    # beside host-bound work whose walls are not metrics
+    on_cpu = pool.submit(long_read_on_cpu, args.seed)
     # the first reads through the kernels and through the plain versions
     ids = range(min(PLAIN_READS, n_reads))
     t0 = time.perf_counter()
@@ -402,43 +403,62 @@ def slice_run(args) -> dict:
     if not same or not len(kern):
         raise SystemExit("kernel and plain .ref text differ")
     profile_stage(lambda: LongReadAligner(ctgs, cfg).align_reads(reads))
-    return launches
+    return launches, on_cpu
 
 
-def long_read(args) -> None:
-    """One read just past the 65536 bucket, planted in a random genome,
-    through the aligner on CUDA and on the CPU.  On CUDA it must take the
-    adaptive band (no static-band launch), as the JAX package sends such
-    buckets to its adaptive scan; the .ref text must equal the CPU's."""
+def long_read_dbs(seed):
+    """One read just past the 65536 bucket, planted in a random genome
+    made from ``seed``: (reads, target) databases."""
     import numpy as np
-    import torch
-    from aligngraph2_tpu_torch.align.aligner import LongReadAligner
-    from aligngraph2_tpu_torch.config import AlignerConfig
     from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
-    from aligngraph2_tpu_torch.ops import banded_static as bs
     from tests.synth import mutate, random_genome
 
-    rng = np.random.default_rng(args.seed + 1)
+    rng = np.random.default_rng(seed + 1)
     genome = random_genome(rng, LONG_READ_BP + 20000)
     read = mutate(rng, genome[10000:10000 + LONG_READ_BP], 0.02, 0.01, 0.01)
     assert len(read) > 65536, len(read)
-    reads = SeqDatabase([("long_read", read)])
-    target = SeqDatabase([("genome", genome)])
-    cfg = AlignerConfig()
+    return (SeqDatabase([("long_read", read)]),
+            SeqDatabase([("genome", genome)]))
+
+
+def long_read_on_cpu(seed):
+    """The long read through the aligner on the CPU: (.ref text, wall s).
+    Runs in a child process during the plain phase."""
+    from aligngraph2_tpu_torch.align.aligner import LongReadAligner
+    from aligngraph2_tpu_torch.config import AlignerConfig
+
+    reads, target = long_read_dbs(seed)
+    t0 = time.perf_counter()
+    cpu = LongReadAligner(target, AlignerConfig(),
+                          device="cpu").align_reads(reads)
+    return cpu.to_ref_text(), time.perf_counter() - t0
+
+
+def long_read(args, on_cpu) -> None:
+    """The long read through the aligner on CUDA.  It must take the
+    adaptive band (no static-band launch), as the JAX package sends such
+    buckets to its adaptive scan; the .ref text must equal the CPU's, from
+    the future ``on_cpu`` of :func:`long_read_on_cpu`."""
+    import torch
+    from aligngraph2_tpu_torch.align.aligner import LongReadAligner
+    from aligngraph2_tpu_torch.config import AlignerConfig
+    from aligngraph2_tpu_torch.ops import banded_static as bs
+
+    reads, target = long_read_dbs(args.seed)
     bs.banded_dp_static.launches = 0
     bs.traceback_static.launches = 0
     t0 = time.perf_counter()
-    cu = LongReadAligner(target, cfg).align_reads(reads)
+    cu = LongReadAligner(target, AlignerConfig()).align_reads(reads)
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    cpu = LongReadAligner(target, cfg, device="cpu").align_reads(reads)
-    t2 = time.perf_counter()
+    cuda_s = time.perf_counter() - t0
+    cpu_text, cpu_s = on_cpu.result()
     static = bs.banded_dp_static.launches + bs.traceback_static.launches
-    same = cu.to_ref_text() == cpu.to_ref_text()
-    emit({"phase": "long_read", "read_bp": len(read), "alignments": len(cu),
+    same = cu.to_ref_text() == cpu_text
+    emit({"phase": "long_read", "read_bp": int(reads.lengths[0]),
+          "alignments": len(cu),
           "aligned_bp": max((a.qe - a.qb for a in cu), default=0),
           "static_launches": static, "ref_text_equal": same,
-          "cuda_s": t1 - t0, "cpu_s": t2 - t1})
+          "cuda_s": cuda_s, "cpu_s": cpu_s})
     if static or not same or not len(cu):
         raise SystemExit("long read: static-band launches, no alignment "
                          "or CUDA and CPU .ref text differ")
@@ -498,8 +518,10 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda, **built})
     timing = gate(args, built["regs"])
-    launches = slice_run(args)
-    long_read(args)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        launches, on_cpu = slice_run(args, pool)
+        long_read(args, on_cpu)
     kernels = []
     for name, key, replaces in (
             ("banded_dp_static", "dp",

@@ -76,6 +76,23 @@ def test_banded_align_and_traceback_equal_jax(x_drop):
             jdp.moves_to_strings(mj[0][b], q[b, :qlen[b]], qb, tb, t[b])
 
 
+@pytest.mark.parametrize("stop_row", [70, 64, 65])
+def test_every_lane_dead_between_checks_equal_jax(stop_row):
+    """Every lane dies (its rows pass qlen) between two of the loop's
+    every-64-row checks, or on one: the rows run after that, all lanes
+    frozen, must leave what the JAX while_loop leaves when it stops at
+    once, centers included."""
+    q, qlen, t, tlen, c0 = _lanes(5)
+    qlen = np.minimum(qlen, stop_row).astype(np.int32)
+    want = jdp.banded_align(q, qlen, t, tlen, c0, W=W, x_drop=250)
+    got = tdp.banded_align(q, qlen, t, tlen, c0, W=W, x_drop=250)
+    for name in want._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert (np.asarray(want.centers)[:, stop_row + 1:] == 0).all()
+
+
 def test_traceback_truncation_equal_jax():
     """max_steps cuts the walk short: moves, counts and the cursor where
     it stopped must match."""
