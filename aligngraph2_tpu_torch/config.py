@@ -1,14 +1,20 @@
-"""Aligner configuration.
+"""Pipeline configuration.
 
-Counterpart of ``aligngraph2_tpu/config.py``: ``AlignerConfig`` is a field-
-for-field copy, so ``AlignerConfig(**dataclasses.asdict(jax_cfg))`` builds
-the same configuration on this side.  The graph, pre-process, consensus,
-runtime and pipeline configs come with the slices that use them.
+Counterpart of ``aligngraph2_tpu/config.py``.  ``AlignerConfig``,
+``GraphConfig``, ``PreProcessConfig`` and ``ConsensusConfig`` are field-
+for-field copies, so ``AlignerConfig(**dataclasses.asdict(jax_cfg))``
+builds the same configuration on this side.  ``RuntimeConfig`` leaves out
+the mesh fields (``data_axis``, ``block_axis``, ``sharded_align``,
+``block_parallel``) until the multi-GPU slice, and gains ``device`` and
+``plain``, which the driver hands to every aligner it builds.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass
@@ -109,3 +115,133 @@ class AlignerConfig:
         """Effective pre-extension candidate prune (see candidate_prune)."""
         return (self.candidate_prune if self.candidate_prune >= 0
                 else self.delta ** 2)
+
+
+@dataclass
+class GraphConfig:
+    """Positional A-Bruijn graph + traversal knobs.
+
+    Defaults mirror the reference's driver defaults
+    (AlignGraph2 AlignGraph2.py:25-46) and the constants hard-coded in
+    pagraph.cpp run2() (AlignGraph2 PAGraph/src/main/pagraph.cpp:110-125).
+    """
+
+    k: int = 14                     # graph k-mer size [4-15]
+    solid_threshold: float = 0.2    # top mass fraction of 4^k table kept solid
+                                    # (kmer_counter.cpp:58-77)
+    epsilon: int = 10               # position-join distance [5-100]
+    min_len: int = 50               # minimum path length for traversal
+    cov_filter: int = 2             # coverage filter -v
+    # hard-coded in pagraph.cpp:110-125.  The reference also declares
+    # ctgToRefTopK / ctgToRefRatio / ctgToRefTotalRatio / ctgToRefMinLen /
+    # innerSample there, but they are dead upstream too: the ctg->ref
+    # filters are commented out in Aligner::simpleAlign
+    # (Aligner.cpp:112-151,174-176), _ctgToRefTopK is set-but-never-read
+    # (Aligner.cpp:269-271), and innerSample is stored-but-never-used
+    # (PositionProcessor.cpp:206-208) — so they are intentionally not
+    # carried here.
+    read_to_ctg_top_k: int = -1
+    read_to_ref_top_k: int = -1
+    outer_sample: int = 3
+    read_to_ctg_ratio: float = 0.35
+    read_to_ref_ratio: float = 0.10
+    error_rate: float = 0.15
+    start_split: float = 0.90
+    # traversal deviation is epsilon * 2 (pagraph.cpp:250 'posError * 2')
+    travel_top_k: int = 8           # parallel greedy walks per step
+
+
+@dataclass
+class PreProcessConfig:
+    """Contig-to-reference grouping (reference pre_process defaults:
+    AlignGraph2 PAGraph/src/main/pre_process.cpp:212-238)."""
+
+    group_top_k: int = 1            # top-K (ref,orient) per contig
+    group_cover_ratio: float = 0.15 # min covered fraction of contig
+
+
+@dataclass
+class ConsensusConfig:
+    """Windowed POA consensus (reference pa_cns defaults:
+    AlignGraph2 PAGraph/src/main/pa_cns.cpp:23-47 and the driver's
+    part_len/top_k at AlignGraph2.py:494-496)."""
+
+    window: int = 10_000            # -a / part_len: backbone window size
+    top_k: int = 3000               # alignments kept per window
+    alpha: int = 250                # weight cap for score-proportional weights
+    min_weight: int = 0             # consensus min base weight
+
+
+@dataclass
+class RuntimeConfig:
+    """Host/device execution knobs."""
+
+    threads: int = 16               # host worker threads for IO-bound stages
+    progress: bool = True           # console progress bar on long loops
+                                    # (MyTools::progress equivalent)
+    profile_dir: Optional[str] = None  # write a torch.profiler trace here
+                                    # (replaces the reference's hand-rolled
+                                    # timing/RSS prints)
+    device: str = "cuda"            # where the aligner stages run: "cuda"
+                                    # (the static band's kernels; raises
+                                    # without a card) or "cpu" (the
+                                    # adaptive band, the JAX package's CPU
+                                    # records)
+    plain: bool = False             # static band through the plain torch
+                                    # versions of the kernels (the
+                                    # reference the card is held against)
+
+
+@dataclass
+class PipelineConfig:
+    aligner: AlignerConfig = field(default_factory=AlignerConfig)
+    graph: GraphConfig = field(default_factory=GraphConfig)
+    preprocess: PreProcessConfig = field(default_factory=PreProcessConfig)
+    consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+
+    def validate(self) -> None:
+        """Range checks mirroring AlignGraph2 AlignGraph2.py:89-119."""
+        g, a, c = self.graph, self.aligner, self.consensus
+        if not 4 <= g.k <= 15:
+            raise ValueError("Size of k-mer must be [4-15]")
+        if not 0.0 <= a.alpha <= 1.0:
+            raise ValueError("Lower bound of k-mer scoring must be [0-1]")
+        if not 1.0 <= a.beta:
+            raise ValueError("Upper bound of k-mer scoring must be >= 1")
+        if not 0.0 <= a.delta <= 1.0:
+            raise ValueError("threshold for alignment scoring must be [0-1]")
+        if a.candidate_prune != -1.0 and not 0.0 <= a.candidate_prune <= 1.0:
+            raise ValueError("candidate_prune must be [0-1] or -1 (auto)")
+        if not 8 <= a.seed_k <= 16:
+            raise ValueError("Aligner seed_k must be [8-16]")
+        if not 8 <= a.ref_seed_k <= 16:
+            raise ValueError("Aligner ref_seed_k must be [8-16]")
+        if not a.seed_k_max <= 16:
+            raise ValueError("seed_k_max must be <= 16")
+        if not 1 <= g.cov_filter:
+            raise ValueError("coverage to filter alignments must be >= 1")
+        if not 5 <= g.epsilon <= 100:
+            raise ValueError("Distance to join two vertices must be [5-100]")
+        if not 0 <= g.min_len:
+            raise ValueError("Minimum path length must not be negative")
+        if not 100 <= c.window <= 100_000:
+            raise ValueError("Size of long read blocks must be [100-100000]")
+        if not 0 <= self.runtime.threads:
+            raise ValueError("Thread number must not be negative")
+        if self.runtime.device not in ("cuda", "cpu"):
+            raise ValueError("device must be cuda or cpu")
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "PipelineConfig":
+        raw = json.loads(text)
+        return cls(
+            aligner=AlignerConfig(**raw.get("aligner", {})),
+            graph=GraphConfig(**raw.get("graph", {})),
+            preprocess=PreProcessConfig(**raw.get("preprocess", {})),
+            consensus=ConsensusConfig(**raw.get("consensus", {})),
+            runtime=RuntimeConfig(**raw.get("runtime", {})),
+        )

@@ -11,8 +11,7 @@
 //
 // Copy of aligngraph2_tpu/native/seedhits.cpp without agx_expand, the
 // host expansion of the TPU's run-length traceback: the CUDA traceback
-// writes dense moves itself.  agk_solid and ags_stride_sample are bound
-// by the slices that port stage 1 and the graph.
+// writes dense moves itself.
 
 #include <algorithm>
 #include <cstddef>

@@ -6,10 +6,10 @@ use into the port's ``_build/`` directory.  Falls back to None when the
 toolchain is unavailable; the numpy path in
 seedextend.find_candidates_batch is the specification and produces
 identical hits.  Bound here: the seeding entry points (``ags_bin``,
-``ags_seed``, ``agr_sort_codes``).  Dropped: ``expand_moves_native`` (the
-CUDA traceback writes dense moves) and the ``ALIGNGRAPH2_TPU_NATIVE_DIR``
-sanitizer override; ``solid_set_native`` and ``stride_sample_native`` come
-with the slices that port stage 1 and the graph.
+``ags_seed``, ``agr_sort_codes``), the solid-k-mer counter of stage 1
+(``agk_solid``) and the graph's stride sampler (``ags_stride_sample``).
+Dropped: ``expand_moves_native`` (the CUDA traceback writes dense moves)
+and the ``ALIGNGRAPH2_TPU_NATIVE_DIR`` sanitizer override.
 """
 
 from __future__ import annotations
@@ -57,6 +57,14 @@ def get_lib() -> Optional[ctypes.CDLL]:
             _pu16, _pi32, _pi64,
             _i64, _pi32, _pi32, _pi64,
         ]
+        lib.ags_stride_sample.restype = _i64
+        lib.ags_stride_sample.argtypes = [_pi64, _i64, _i64, _pi64]
+        lib.agk_solid.restype = _i64
+        lib.agk_solid.argtypes = [
+            _pu8, _pi64, _i64, _i64, ctypes.c_double,
+            ctypes.POINTER(_pi64), ctypes.POINTER(_i64),
+        ]
+        lib.agk_free.argtypes = [_pi64]
         lib.ags_bin.restype = _i64
         lib.ags_bin.argtypes = [
             _pu8, _pi64, _i64, _i64,
@@ -76,6 +84,50 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.agr_sort_codes.argtypes = [_pi64, _pi64, _i64]
         _lib = lib
         return _lib
+
+
+def solid_set_native(bases: np.ndarray, read_start: np.ndarray, k: int,
+                     threshold: float
+                     ) -> Optional[Tuple[np.ndarray, int]]:
+    """(sorted solid codes, cutoff) via the native counter, or None.
+
+    A cutoff of 0 returns an empty code array — the caller emits the
+    full 4^k universe (the reference's degenerate regime)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    bases = np.ascontiguousarray(bases, np.uint8)
+    read_start = np.ascontiguousarray(read_start, np.int64)
+    out = _pi64()
+    cutoff = _i64()
+    n = lib.agk_solid(bases.ctypes.data_as(_pu8),
+                      read_start.ctypes.data_as(_pi64),
+                      len(read_start) - 1, k, threshold,
+                      ctypes.byref(out), ctypes.byref(cutoff))
+    if n < 0:
+        return None
+    try:
+        if n == 0 and not out:
+            return np.zeros(0, np.int64), int(cutoff.value)
+        codes = np.ctypeslib.as_array(out, shape=(max(n, 1),))[:n].copy()
+        return codes.astype(np.int64), int(cutoff.value)
+    finally:
+        if out:
+            lib.agk_free(out)
+
+
+def stride_sample_native(eligible: np.ndarray,
+                         stride: int) -> Optional[np.ndarray]:
+    """Greedy stride sampling over a sorted position array, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    eligible = np.ascontiguousarray(eligible, np.int64)
+    out = np.empty(max(len(eligible), 1), np.int64)
+    n = lib.ags_stride_sample(eligible.ctypes.data_as(_pi64),
+                              len(eligible), stride,
+                              out.ctypes.data_as(_pi64))
+    return out[:n]
 
 
 def seed_bin_native(index, bases: np.ndarray, read_start: np.ndarray,

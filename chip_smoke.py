@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--seed 0] [--genome-mb 1]
 
-Builds the kernels from this checkout (nvcc and g++, in parallel), then
-prints one JSON line per phase:
+Builds the kernels and the five host cores from this checkout (nvcc and
+g++, in parallel), then prints one JSON line per phase:
 
-  card    the card, the build seconds and ptxas' register report;
+  card    the card, the build seconds and ptxas' register report; any
+          kernel or host core that fails to build fails the run;
   gate    each CUDA kernel against its plain torch version on the card, on
           planted lanes (B=1024, NQ=8192; W=256 and 512; x_drop 0 and
           250; the aligner's batch for the 16384 bucket, B=384, W=256,
@@ -28,8 +29,22 @@ prints one JSON line per phase:
           both walls;
   profile stage 2 again under torch.profiler: host spans, device time
           by kernel, the card's idle share;
-  kernels one entry per CUDA kernel with its launches, error, times and
-          bound.
+  pipeline the whole eight-stage pipeline through run_pipeline on CUDA,
+          with the config the CLI builds from its default flags, on a
+          5 Mb PacBio dataset (bench_e2e.py's recipe): whole wall,
+          reads/s, stage walls and RSS, stage 6's ingest and merge
+          seconds (the rest of it is graph set-up, subsets and
+          traversal), solid k-mers, groups, chains, consumed contigs,
+          and each kernel's launches in stages 2, 3, 4 and 7 (each must
+          be nonzero); at least one chain, a longest output longer than
+          the longest contig, and identity above 0.85 against the truth
+          genome;
+  cli     ``python -m aligngraph2_tpu_torch.cli`` as a subprocess on the
+          card, flags only, on a small dataset, and the same inputs run
+          in-process through the plain versions: the five output files
+          must be byte-identical;
+  kernels one entry per CUDA kernel with its launches in the pipeline
+          phase, error, times and bound.
 
 then the card's name and power limit as nvidia-smi prints them and, last,
 {"ok": true, "device": {...}}.  Any failure exits nonzero before that
@@ -67,6 +82,28 @@ GATE = ((GATE_B, GATE_NQ, 256, 0), (GATE_B, GATE_NQ, 256, 250),
 LONG_READ_BP = 66000           # past the 65536 bucket
 REPS = 5
 PLAIN_READS = 200
+# the pipeline phase's dataset: bench_e2e.py's 5 Mb PacBio recipe
+PIPELINE_DATA = dict(genome_len=5_000_000, coverage=20, mean_read=9000,
+                     read_err=0.13, similar_div=0.01, n_contigs=20,
+                     contig_gap=2000, profile="pacbio")
+# the cli phase's dataset and flags: the legacy 6 kb dataset of
+# tests/test_pipeline.py at 20 kb in four contigs (which chain at the
+# default seed), reads ~1 kb so the plain versions take short buckets;
+# k = 12 keeps the solid set at 4^12 codes
+CLI_DATA = dict(genome_len=20_000, coverage=14, mean_read=1000,
+                read_err=0.02, n_contigs=4, contig_gap=350)
+CLI_FLAGS = ["-k", "12"]
+OUTPUTS = ("final.fasta", "remainder.fasta", "exclude.fasta", "add.fasta",
+           "connect_info.txt")
+# each aligner stage's opening message in run_pipeline's log, and its key
+# in the run's stage_s
+ALIGNER_STAGES = {"Read to Contig...": "read_to_ctg",
+                  "Read to Ref...": "read_to_ref",
+                  "Contig to Ref...": "ctg_to_ref",
+                  "Align and split...": "align_split"}
+STAGE_OPENINGS = ("K-Mer counting...", *ALIGNER_STAGES, "Pre process...",
+                  "PAGraph...", "Extract and split...", "Correct...",
+                  "Final output:")
 
 
 def emit(obj) -> None:
@@ -81,9 +118,14 @@ def nvidia_smi() -> str:
 
 
 def build_all() -> dict:
-    """Build the CUDA kernels and the two host cores, all at once."""
+    """Build the CUDA kernels and the five host cores, all at once.  A core
+    that does not build fails the run: the pipeline would quietly take
+    its Python specification instead."""
+    from aligngraph2_tpu_torch.consensus import native as cns_native
+    from aligngraph2_tpu_torch.graph import ingest_native
     from aligngraph2_tpu_torch.io import native as io_native
     from aligngraph2_tpu_torch.ops import _cuda, native as ops_native
+    from aligngraph2_tpu_torch.traverse import native as tr_native
     from aligngraph2_tpu_torch.utils.nativebuild import lib_path
 
     def timed(fn):
@@ -95,7 +137,10 @@ def build_all() -> dict:
 
     jobs = {"banded_static.cu": _cuda.get_lib,
             "fastio.cpp": io_native.get_lib,
-            "seedhits.cpp": ops_native.get_lib}
+            "seedhits.cpp": ops_native.get_lib,
+            "ingest.cpp": ingest_native.get_lib,
+            "traverse.cpp": tr_native.get_lib,
+            "poacns.cpp": cns_native.get_lib}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in jobs.items()}
         secs = {k: round(f.result(), 3) for k, f in futs.items()}
@@ -308,9 +353,8 @@ def check_records(alns, qdb, tdb, limit=300):
 
 
 def slice_run(args, pool):
-    """Stages 2-4 on CUDA; returns the main path's launch counts and the
-    future of the long read's CPU half, started in ``pool`` with the
-    plain phase."""
+    """Stages 2-4 on CUDA, each kernel launched; returns the future of the
+    long read's CPU half, started in ``pool`` with the plain phase."""
     from aligngraph2_tpu_torch.align.aligner import LongReadAligner
     from aligngraph2_tpu_torch.config import AlignerConfig
     from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
@@ -403,7 +447,7 @@ def slice_run(args, pool):
     if not same or not len(kern):
         raise SystemExit("kernel and plain .ref text differ")
     profile_stage(lambda: LongReadAligner(ctgs, cfg).align_reads(reads))
-    return launches, on_cpu
+    return on_cpu
 
 
 def long_read_dbs(seed):
@@ -495,6 +539,177 @@ def profile_stage(work) -> None:
           "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms})
 
 
+def write_inputs(ds, d):
+    """reads.fq, ctg.fa, genome.fa (the similar genome) of ``ds`` in
+    ``d``, written with the port's io.fasta; returns their paths."""
+    from aligngraph2_tpu_torch.io.fasta import write_fasta, write_fastq
+    paths = [os.path.join(d, n) for n in ("reads.fq", "ctg.fa", "genome.fa")]
+    write_fastq(paths[0], ds["reads"])
+    write_fasta(paths[1], ds["contigs"])
+    write_fasta(paths[2], ds["similar"])
+    return paths
+
+
+def cli_config(argv):
+    """The PipelineConfig the CLI builds from ``argv``."""
+    from aligngraph2_tpu_torch import cli
+    return cli.config_from_args(cli.build_parser().parse_args(argv))
+
+
+def identity_to_truth(seq, genome):
+    """Matching columns over all columns of ``seq``'s alignments to the
+    truth genome through the port's align_chunked, and the share of
+    ``seq`` they cover."""
+    import numpy as np
+    from aligngraph2_tpu_torch.align.aligner import align_chunked
+    from aligngraph2_tpu_torch.config import AlignerConfig
+    from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
+    alns = align_chunked(SeqDatabase([("truth", genome)]),
+                         SeqDatabase([("probe", seq.upper())]),
+                         AlignerConfig())
+    cols = sum(len(a.qstr) for a in alns)
+    same = sum(int(np.count_nonzero(np.frombuffer(a.qstr.encode(), np.uint8)
+                                    == np.frombuffer(a.tstr.encode(),
+                                                     np.uint8)))
+               for a in alns)
+    covered = np.zeros(len(seq), bool)
+    for a in alns:
+        covered[a.qb:a.qe] = True
+    return same / max(cols, 1), float(covered.mean()), len(alns)
+
+
+def pipeline(args) -> dict:
+    """The whole pipeline on CUDA at 5 Mb, through run_pipeline with the
+    CLI's default config; returns each kernel's launches in the run."""
+    import tempfile
+    from aligngraph2_tpu_torch.io.fasta import read_seqs
+    from aligngraph2_tpu_torch.ops import banded_static as bs
+    from aligngraph2_tpu_torch.pipeline.driver import run_pipeline
+    from tests.synth import make_dataset
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as d:
+        t0 = time.perf_counter()
+        ds = make_dataset(seed=args.seed, **PIPELINE_DATA)
+        paths = write_inputs(ds, d)
+        setup_s = time.perf_counter() - t0
+        out = os.path.join(d, "out")
+        cfg = cli_config(["-r", paths[0], "-c", paths[1], "-g", paths[2],
+                          "-o", out])
+        cfg.runtime.progress = False
+        snaps = []
+        graph_s = {"ingest": 0.0, "merge": 0.0}
+
+        def log(msg, *_):
+            msg = str(msg)
+            if msg.startswith(STAGE_OPENINGS):
+                snaps.append((msg, bs.banded_dp_static.launches,
+                              bs.traceback_static.launches))
+            # stage 6's two passes report their ingest and merge seconds
+            m = re.search(r"\(ingest ([\d.]+)s merge ([\d.]+)s\)", msg)
+            if m:
+                graph_s["ingest"] += float(m.group(1))
+                graph_s["merge"] += float(m.group(2))
+
+        bs.banded_dp_static.launches = 0
+        bs.traceback_static.launches = 0
+        t0 = time.perf_counter()
+        res = run_pipeline(*paths, out, cfg, log=log)
+        wall = time.perf_counter() - t0
+        launches = {"banded_dp_static": bs.banded_dp_static.launches,
+                    "traceback_static": bs.traceback_static.launches}
+        per_stage = {}
+        for (msg, dp, tb), (_, dp2, tb2) in zip(snaps, snaps[1:]):
+            for opening, key in ALIGNER_STAGES.items():
+                if msg.startswith(opening):
+                    per_stage[key] = {"banded_dp_static": dp2 - dp,
+                                      "traceback_static": tb2 - tb}
+        recs = list(read_seqs(res.final_fasta))
+        longest = max(recs, key=lambda r: len(r[1]), default=("", ""))
+        longest_ctg = max(len(s) for _, s in ds["contigs"])
+        ident, covered, n_alns = (identity_to_truth(longest[1], ds["genome"])
+                                  if recs else (0.0, 0.0, 0))
+        st = res.stats
+        emit({"phase": "pipeline", "genome_bp": len(ds["genome"]),
+              "reads": st["n_reads"], "contigs": st["n_contigs"],
+              "setup_s": setup_s, "wall_s": wall,
+              "reads_per_s": st["n_reads"] / wall,
+              "stage_s": st["stage_s"], "stage_rss_mb": st["stage_rss_mb"],
+              "pagraph_ingest_s": graph_s["ingest"],
+              "pagraph_merge_s": graph_s["merge"],
+              "rss_mb": st["rss_mb"], "n_solid": st["n_solid"],
+              "n_groups": st["n_groups"], "n_chains": st["n_chains"],
+              "consumed": len(st["consumed"]),
+              "alignments": {k: st[k] for k in (
+                  "n_read_to_ctg", "n_read_to_ref", "n_ctg_to_ref")},
+              "launches": launches, "launches_by_stage": per_stage,
+              "final_records": len(recs), "longest_bp": len(longest[1]),
+              "longest_contig_bp": longest_ctg,
+              "identity_to_truth": ident, "covered_share": covered,
+              "truth_alignments": n_alns})
+    if not st["n_chains"]:
+        raise SystemExit("pipeline: no chain, so stages 7 and 8 did not run")
+    idle = [key for key in ALIGNER_STAGES.values()
+            if not (key in per_stage and all(per_stage[key].values()))]
+    if idle:
+        raise SystemExit(f"pipeline: a kernel was not launched in {idle}")
+    if not recs:
+        raise SystemExit("pipeline: final.fasta is empty")
+    if len(longest[1]) <= longest_ctg:
+        raise SystemExit("pipeline: the longest output is not longer than "
+                         "the longest contig")
+    if ident <= 0.85:
+        raise SystemExit(f"pipeline: identity {ident:.4f} to the truth "
+                         "genome is not above 0.85")
+    return launches
+
+
+def cli_run(args) -> None:
+    """The CLI as a subprocess on the card, and the same inputs through the
+    plain versions in-process: the five outputs must be equal."""
+    import tempfile
+    from aligngraph2_tpu_torch.pipeline.driver import run_pipeline
+    from tests.synth import make_dataset
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
+        ds = make_dataset(seed=args.seed, **CLI_DATA)
+        paths = write_inputs(ds, d)
+        argv = ["-r", paths[0], "-c", paths[1], "-g", paths[2], *CLI_FLAGS]
+        out_cli, out_plain = (os.path.join(d, n) for n in ("cli", "plain"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "aligngraph2_tpu_torch.cli", *argv,
+             "-o", out_cli], cwd=HERE, capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise SystemExit(f"cli exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+        cfg = cli_config([*argv, "-o", out_plain])
+        cfg.runtime.plain = True
+        cfg.runtime.progress = False
+        t0 = time.perf_counter()
+        plain = run_pipeline(*paths[:3], out_plain, cfg, log=lambda *a: None)
+        plain_s = time.perf_counter() - t0
+        with open(os.path.join(out_cli, "metrics.json")) as f:
+            metrics = json.load(f)
+        same = {}
+        for name in OUTPUTS:
+            with open(os.path.join(out_cli, name), "rb") as f1, \
+                    open(os.path.join(out_plain, name), "rb") as f2:
+                same[name] = f1.read() == f2.read()
+        emit({"phase": "cli", "genome_bp": len(ds["genome"]),
+              "reads": len(ds["reads"]), "flags": CLI_FLAGS,
+              "device": metrics["device"], "n_chains": metrics["n_chains"],
+              "plain_n_chains": plain.stats["n_chains"],
+              "files_equal": same, "cli_s": cli_s, "plain_s": plain_s,
+              "cli_stage_s": metrics["stage_s"],
+              "plain_stage_s": plain.stats["stage_s"]})
+    if not all(same.values()):
+        raise SystemExit(f"cli: outputs differ from the plain run: {same}")
+    if metrics["device"] != "cuda" or not metrics["n_chains"]:
+        raise SystemExit("cli: not on the card, or no chain formed")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -520,8 +735,10 @@ def main() -> int:
     timing = gate(args, built["regs"])
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        launches, on_cpu = slice_run(args, pool)
+        on_cpu = slice_run(args, pool)
         long_read(args, on_cpu)
+    launches = pipeline(args)
+    cli_run(args)
     kernels = []
     for name, key, replaces in (
             ("banded_dp_static", "dp",
