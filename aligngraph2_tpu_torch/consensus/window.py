@@ -8,7 +8,8 @@ at alpha, build a POA graph per window, and concatenate per-window
 consensus strings.
 
 Copy of ``aligngraph2_tpu/consensus/window.py``, except the dispatch (see
-``consensus_backbone``).
+``consensus_backbone``): its ``device`` path runs on the caller's device
+and does not fall back to the host.
 """
 
 from __future__ import annotations
@@ -101,22 +102,29 @@ def weight_alignments(part: List[WindowAln], alpha: int) -> List[int]:
 
 def consensus_backbone(backbone: str, alns: AlignmentSet,
                        cfg: ConsensusConfig, threads: int = 4,
-                       use_native: bool = True) -> str:
+                       use_native: bool = True, device="cuda") -> str:
     """Full pa_cns flow for one backbone.
 
     Backend dispatch (ALIGNGRAPH2_TPU_TORCH_CONSENSUS):
       * ``native`` (the default) — the host C++ core (native/poacns.cpp),
         one call per backbone, std::thread window parallelism; the
-        Python spec below when the core is not available;
-      * ``spec`` — the pure-Python spec below;
-      * ``device`` — the device aggregation; raises until it is ported,
-        and never falls back to the host.
-    ``ALIGNGRAPH2_TPU_TORCH_NO_NATIVE=1`` also selects the spec.  Both
-    are bit-identical (tests/test_torch_consensus.py)."""
+        Python spec below when the core is not available, or with
+        ``ALIGNGRAPH2_TPU_TORCH_NO_NATIVE=1``;
+      * ``device`` — native encode, the column and chain aggregation as
+        torch ops on ``device``, native reduced merge
+        (consensus/device.py); a failure raises, with no fallback to the
+        host;
+      * ``spec`` — the pure-Python spec below.
+    All three are bit-identical (tests/test_torch_consensus.py,
+    tests/test_torch_consensus_device.py)."""
     from ..utils.backend import resolve_backend
     backend = resolve_backend("ALIGNGRAPH2_TPU_TORCH_CONSENSUS",
-                              ("native", "spec"),
-                              "ROADMAP.md §1 item 10, device consensus")
+                              ("native", "device", "spec"))
+    if backend == "device":
+        from .device import consensus_backbone_device
+        return consensus_backbone_device(
+            backbone, list(alns), cfg.window, cfg.top_k, cfg.alpha,
+            cfg.min_weight, threads, device=device)
     if (backend == "native" and use_native
             and os.environ.get("ALIGNGRAPH2_TPU_TORCH_NO_NATIVE") != "1"):
         from .native import consensus_backbone_native

@@ -5,8 +5,9 @@ Re-designs the reference PABruijnGraph/KMerAdjNode
 AlignGraph2 PAGraph/src/tools/node/KMerAdjNode.{hpp,tcc}) from
 per-node mutex-guarded vectors into flat arrays + sort/segment reductions.
 Copy of ``aligngraph2_tpu/graph/pagraph.py``, except the merge dispatch:
-``ALIGNGRAPH2_TPU_TORCH_MERGE`` takes ``native`` (the default) or ``numpy``;
-the device merge and its link probe come with a later slice.
+``ALIGNGRAPH2_TPU_TORCH_MERGE`` takes ``native`` (the default), ``numpy``
+or ``device`` (graph/merge_device.py, torch ops on the graph's
+``device``, which never falls back); there is no link probe.
 
   * nodes: the sorted unique solid k-mer codes; a node id is the rank of
     its code (identical to the reference's dense index,
@@ -154,8 +155,10 @@ def _append3(buf, n, a, b, c, dtypes=(np.int64, np.int64, np.int64)):
 class PAGraph:
     """The graph: node table + position/edge SoA with CSR views."""
 
-    def __init__(self, solid_codes: np.ndarray, k: int):
+    def __init__(self, solid_codes: np.ndarray, k: int, device="cuda"):
         self.k = int(k)
+        # where the device merge runs (ALIGNGRAPH2_TPU_TORCH_MERGE=device)
+        self.device = device
         self.node_codes = np.unique(np.asarray(solid_codes, dtype=np.int64))
         self.n_nodes = len(self.node_codes)
         # dense code -> node-id table (same trick as the seeding index):
@@ -317,13 +320,12 @@ class PAGraph:
     @staticmethod
     def _merge_backend() -> str:
         """Merge dispatch on ALIGNGRAPH2_TPU_TORCH_MERGE: 'native' (the
-        default, C++ core) or 'numpy' (the in-file specification).
-        'device' (the sort/segment merge on the card) raises until it is
-        ported."""
+        default, C++ core), 'device' (torch sort/segment ops on the
+        graph's device, graph/merge_device.py) or 'numpy' (the in-file
+        specification)."""
         from ..utils.backend import resolve_backend
         return resolve_backend("ALIGNGRAPH2_TPU_TORCH_MERGE",
-                               ("native", "numpy"),
-                               "ROADMAP.md §1 item 9, device graph merge")
+                               ("native", "device", "numpy"))
 
     def merge_edges(self) -> int:
         """Exact (from, to, step) dedup; returns removed count
@@ -338,6 +340,13 @@ class PAGraph:
         if before == 0:
             return 0
         backend = self._merge_backend()
+        if backend == "device":
+            from .merge_device import merge_edges_device
+            self.edge_from, self.edge_to, self.edge_step = \
+                merge_edges_device(self.edge_from, self.edge_to,
+                                   self.edge_step, self.n_nodes, self.device)
+            self._edges_sorted = True
+            return before - len(self.edge_from)
         bn = max(int(self.n_nodes).bit_length(), 1)
         max_step = int(self.edge_step.max())
         min_step = int(self.edge_step.min())
@@ -404,6 +413,17 @@ class PAGraph:
         if before == 0:
             return 0
         backend = self._merge_backend()
+        if backend == "device":
+            # torch sort + segment ops on the graph's device
+            # (graph/merge_device.py); equality with the numpy spec below
+            # is gated by tests/test_torch_merge_device.py
+            from .merge_device import merge_positions_device
+            self.pos_node, self.pos_ctg, self.pos_ref, self.pos_count = \
+                merge_positions_device(self.pos_node, self.pos_ctg,
+                                       self.pos_ref, self.pos_count,
+                                       int(epsilon), self.device)
+            self._pos_sorted = True
+            return before - len(self.pos_node)
         if backend != "numpy":
             # native single-pass merge (bucket by node + per-segment sort
             # + chain-cluster, native/ingest.cpp agp_merge_pos); the numpy

@@ -341,7 +341,8 @@ def _run(read_path: str, ctg_path: str, genome_path: str, out_dir: str,
             log(f"  group {gi}: ref={group.ref_name} "
                 f"contigs={len(group.contigs)}")
             if graph is None:
-                graph = PAGraph(solid, cfg.graph.k)
+                graph = PAGraph(solid, cfg.graph.k,
+                                device=cfg.runtime.device)
             member_names = {n for n, _ in group.contigs}
             g_ctgs = ctgs.subset_by_names(member_names)
             g_refs = refs.subset_by_names({group.ref_name})
@@ -464,7 +465,8 @@ def _run(read_path: str, ctg_path: str, genome_path: str, out_dir: str,
                 log(f"\tcorrecting {name}")
                 cns = consensus_backbone(seq, per_backbone[name],
                                          cfg.consensus,
-                                         threads=cfg.runtime.threads)
+                                         threads=cfg.runtime.threads,
+                                         device=cfg.runtime.device)
                 cor_records.append((name, cns if cns else seq))
             write_fasta(cor_path, cor_records)
             o_cache.save(merge_path, all_path)

@@ -30,19 +30,27 @@ g++, in parallel), then prints one JSON line per phase:
   profile stage 2 again under torch.profiler: host spans, device time
           by kernel, the card's idle share;
   pipeline the whole eight-stage pipeline through run_pipeline on CUDA,
-          with the config the CLI builds from its default flags, on a
-          5 Mb PacBio dataset (bench_e2e.py's recipe): whole wall,
-          reads/s, stage walls and RSS, stage 6's ingest and merge
-          seconds (the rest of it is graph set-up, subsets and
-          traversal), solid k-mers, groups, chains, consumed contigs,
-          and each kernel's launches in stages 2, 3, 4 and 7 (each must
-          be nonzero); at least one chain, a longest output longer than
-          the longest contig, and identity above 0.85 against the truth
-          genome;
+          with the config the CLI builds from its default flags and the
+          merge and consensus switches at ``device``, on a 5 Mb PacBio
+          dataset (bench_e2e.py's recipe): whole wall, reads/s, stage
+          walls and RSS, stage 6's ingest and merge seconds (the rest of
+          it is graph set-up, subsets and traversal), solid k-mers,
+          groups, chains, consumed contigs, and each kernel's launches in
+          stages 2, 3, 4 and 7 (each must be nonzero); at least one chain,
+          a longest output longer than the longest contig, and identity
+          above 0.85 against the truth genome.  The device merge and
+          consensus entry points are wrapped in this process for the run
+          (DeviceCalls): each call's inputs, outputs and card time are
+          kept, with the host<->device copies timed apart;
+  device_paths the native C++ core on each kept input: every output must
+          equal the device path's; per call its sizes, card ms, copies ms,
+          native ms, bytes and their bound, and the same per function;
   cli     ``python -m aligngraph2_tpu_torch.cli`` as a subprocess on the
-          card, flags only, on a small dataset, and the same inputs run
-          in-process through the plain versions: the five output files
-          must be byte-identical;
+          card with both switches at ``device``, flags only, on a small
+          dataset, and the same inputs run in-process through the plain
+          versions and the native cores: the five output files must be
+          byte-identical;
+  total   the script's wall so far;
   kernels one entry per CUDA kernel with its launches in the pipeline
           phase, error, times and bound.
 
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -104,6 +113,14 @@ ALIGNER_STAGES = {"Read to Contig...": "read_to_ctg",
 STAGE_OPENINGS = ("K-Mer counting...", *ALIGNER_STAGES, "Pre process...",
                   "PAGraph...", "Extract and split...", "Correct...",
                   "Final output:")
+# the backend switches of stage 6's merges and stage 8's aggregation
+SWITCHES = ("ALIGNGRAPH2_TPU_TORCH_MERGE", "ALIGNGRAPH2_TPU_TORCH_CONSENSUS")
+# each device function of the device paths: the XLA function it replaces
+DEVICE_FUNCTIONS = {
+    "merge_positions_device": "aligngraph2_tpu/graph/merge_device.py:48",
+    "merge_edges_device": "aligngraph2_tpu/graph/merge_device.py:74",
+    "_agg_columns": "aligngraph2_tpu/consensus/device.py:197",
+    "_chain_sort": "aligngraph2_tpu/consensus/device.py:306"}
 
 
 def emit(obj) -> None:
@@ -578,9 +595,221 @@ def identity_to_truth(seq, genome):
     return same / max(cols, 1), float(covered.mean()), len(alns)
 
 
-def pipeline(args) -> dict:
+@contextlib.contextmanager
+def switches(value):
+    """Both backend switches set to ``value`` in this process, and put
+    back after."""
+    old = {var: os.environ.get(var) for var in SWITCHES}
+    os.environ.update({var: value for var in SWITCHES})
+    try:
+        yield
+    finally:
+        for var, val in old.items():
+            if val is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = val
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of the tensors in ``objs`` (nested in tuples, lists and
+    dicts)."""
+    import torch
+    n = 0
+    for obj in objs:
+        if isinstance(obj, torch.Tensor):
+            n += obj.numel() * obj.element_size()
+        elif isinstance(obj, dict):
+            n += tensor_bytes(*obj.values())
+        elif isinstance(obj, (tuple, list)):
+            n += tensor_bytes(*obj)
+    return n
+
+
+def synced_ms(fn, *args, **kw):
+    """(milliseconds, result) of one call, the card synchronised before
+    and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+class DeviceCalls:
+    """The port's device merge and consensus, wrapped in this process.
+
+    While open, every call of ``merge_positions_device``,
+    ``merge_edges_device`` and ``consensus_backbone_device`` is kept in
+    ``calls``: its arguments, result and card ms (synchronised before and
+    after); the host<->device copies it makes (utils/transfer.py) are
+    timed apart, with their bytes; inside the consensus, ``_agg_columns``
+    and ``_chain_sort`` are timed on their own, with the rows they take
+    (columns, chain records) and the bytes of their tensors.  The package
+    dispatches through module attributes, which is what is replaced here;
+    no package file changes."""
+
+    ENTRIES = ("merge_positions_device", "merge_edges_device",
+               "consensus_backbone_device")
+    INNER = {"_agg_columns": lambda a: int(a[0].numel()),
+             "_chain_sort": lambda a: int(a[0]["win"].numel())}
+
+    def __init__(self):
+        self.calls = []
+        self._open = None
+
+    def __enter__(self):
+        from aligngraph2_tpu_torch.consensus import device as cd
+        from aligngraph2_tpu_torch.graph import merge_device as md
+        from aligngraph2_tpu_torch.utils import transfer
+        where = {"to_device": transfer, "to_host": transfer,
+                 "merge_positions_device": md, "merge_edges_device": md,
+                 "consensus_backbone_device": cd, "_agg_columns": cd,
+                 "_chain_sort": cd}
+        self._saved = [(mod, name, getattr(mod, name))
+                       for name, mod in where.items()]
+        for mod, name, fn in self._saved:
+            wrap = (self._copy if name.startswith("to_") else
+                    self._entry if name in self.ENTRIES else self._inner)
+            setattr(mod, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def _copy(self, name, fn):
+        def copy(x, *args):
+            ms, out = synced_ms(fn, x, *args)
+            if self._open is not None:
+                self._open["copy_ms"] += ms
+                self._open["copy_bytes"] += (x if name == "to_device"
+                                             else out).nbytes
+            return out
+        return copy
+
+    def _entry(self, name, fn):
+        def entry(*args, **kw):
+            rec = {"fn": name, "args": args, "copy_ms": 0.0,
+                   "copy_bytes": 0, "inner": {}}
+            self._open = rec
+            try:
+                rec["ms"], rec["out"] = synced_ms(fn, *args, **kw)
+            finally:
+                self._open = None
+            self.calls.append(rec)
+            return rec["out"]
+        return entry
+
+    def _inner(self, name, fn):
+        def inner(*args, **kw):
+            ms, out = synced_ms(fn, *args, **kw)
+            if self._open is not None:
+                d = self._open["inner"].setdefault(
+                    name, {"calls": 0, "ms": 0.0, "rows": 0, "bytes": 0})
+                d["calls"] += 1
+                d["ms"] += ms
+                d["rows"] += self.INNER[name](args)
+                d["bytes"] += tensor_bytes(args, kw, out)
+            return out
+        return inner
+
+
+def bytes_bound_ms(nbytes: int) -> float:
+    """Least time to read or write ``nbytes`` once at the HBM rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def device_paths(calls) -> dict:
+    """The native core on each input the pipeline's device paths took:
+    every output must be equal.  Prints one line per call and per device
+    function; returns the per-function summary."""
+    import numpy as np
+    from aligngraph2_tpu_torch.consensus.native import (
+        consensus_backbone_native)
+    from aligngraph2_tpu_torch.graph.ingest_native import (
+        merge_edges_native, merge_positions_native)
+
+    t_phase = time.perf_counter()
+    rows, bad = [], []
+    for i, c in enumerate(calls):
+        a, out = c["args"], c["out"]
+        t0 = time.perf_counter()
+        if c["fn"] == "merge_positions_device":
+            node, ctg, ref, cnt, eps = a[:5]
+            want = merge_positions_native(node, ctg, ref, cnt,
+                                          int(node.max()) + 1, eps)
+            size = {"positions": len(node), "clusters": len(out[0])}
+        elif c["fn"] == "merge_edges_device":
+            want = merge_edges_native(*a[:3])
+            size = {"edges": len(a[0]), "distinct": len(out[0])}
+        else:
+            want = consensus_backbone_native(*a[:7])
+            size = {"backbone_bp": len(a[0]), "alignments": len(a[1]),
+                    "columns": c["inner"].get("_agg_columns",
+                                              {}).get("rows", 0),
+                    "chain_records": c["inner"].get("_chain_sort",
+                                                    {}).get("rows", 0)}
+        native_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(out, str):
+            same = want == out
+        else:
+            same = want is not None and all(
+                np.array_equal(x, y) for x, y in zip(out, want))
+        if not same:
+            bad.append(i)
+        nbytes = c["copy_bytes"]
+        rows.append({"fn": c["fn"], **size, "equal": same, "ms": c["ms"],
+                     "copy_ms": c["copy_ms"], "native_ms": native_ms,
+                     "bytes": nbytes, "bound_ms": bytes_bound_ms(nbytes),
+                     "inner": c["inner"]})
+    by_fn = {}
+    for name, replaces in DEVICE_FUNCTIONS.items():
+        if name in DeviceCalls.ENTRIES:
+            mine = [r for r in rows if r["fn"] == name]
+            n = len(mine)
+            ms = sum(r["ms"] for r in mine)
+            nbytes = sum(r["bytes"] for r in mine)
+            extra = {"copy_ms_per_call": sum(r["copy_ms"] for r in mine)
+                     / max(n, 1),
+                     "native_ms_per_call": sum(r["native_ms"] for r in mine)
+                     / max(n, 1)}
+        else:
+            # one call per column batch of a consensus call; the copies
+            # and the native core belong to the whole consensus call
+            mine = [r for r in rows if name in r["inner"]]
+            n = sum(r["inner"][name]["calls"] for r in mine)
+            ms = sum(r["inner"][name]["ms"] for r in mine)
+            nbytes = sum(r["inner"][name]["bytes"] for r in mine)
+            extra = {"consensus_calls": len(mine),
+                     "copy_ms_of_consensus_calls": sum(r["copy_ms"]
+                                                       for r in mine),
+                     "native_ms_of_consensus_calls": sum(r["native_ms"]
+                                                         for r in mine)}
+        per = nbytes / max(n, 1)
+        by_fn[name] = {"replaces": replaces, "calls": n,
+                       "ms_per_call": ms / max(n, 1), **extra,
+                       "bytes_per_call": per,
+                       "bound_ms_per_call": bytes_bound_ms(per)}
+    emit({"phase": "device_paths", "calls": rows, "by_function": by_fn,
+          "all_equal": not bad, "phase_s": time.perf_counter() - t_phase})
+    missing = [fn for fn in DeviceCalls.ENTRIES
+               if not any(r["fn"] == fn for r in rows)]
+    if missing:
+        raise SystemExit(f"device_paths: never called in the pipeline: "
+                         f"{missing}")
+    if bad:
+        raise SystemExit(f"device_paths: calls {bad} differ from the "
+                         "native core")
+    return by_fn
+
+
+def pipeline(args):
     """The whole pipeline on CUDA at 5 Mb, through run_pipeline with the
-    CLI's default config; returns each kernel's launches in the run."""
+    CLI's default config and both switches at ``device``; returns each
+    kernel's launches in the run and the device paths' calls
+    (DeviceCalls.calls)."""
     import tempfile
     from aligngraph2_tpu_torch.io.fasta import read_seqs
     from aligngraph2_tpu_torch.ops import banded_static as bs
@@ -613,7 +842,8 @@ def pipeline(args) -> dict:
         bs.banded_dp_static.launches = 0
         bs.traceback_static.launches = 0
         t0 = time.perf_counter()
-        res = run_pipeline(*paths, out, cfg, log=log)
+        with switches("device"), DeviceCalls() as dc:
+            res = run_pipeline(*paths, out, cfg, log=log)
         wall = time.perf_counter() - t0
         launches = {"banded_dp_static": bs.banded_dp_static.launches,
                     "traceback_static": bs.traceback_static.launches}
@@ -630,6 +860,8 @@ def pipeline(args) -> dict:
                                   if recs else (0.0, 0.0, 0))
         st = res.stats
         emit({"phase": "pipeline", "genome_bp": len(ds["genome"]),
+              "switches": {var: "device" for var in SWITCHES},
+              "device_calls": len(dc.calls),
               "reads": st["n_reads"], "contigs": st["n_contigs"],
               "setup_s": setup_s, "wall_s": wall,
               "reads_per_s": st["n_reads"] / wall,
@@ -660,12 +892,13 @@ def pipeline(args) -> dict:
     if ident <= 0.85:
         raise SystemExit(f"pipeline: identity {ident:.4f} to the truth "
                          "genome is not above 0.85")
-    return launches
+    return launches, dc.calls
 
 
 def cli_run(args) -> None:
-    """The CLI as a subprocess on the card, and the same inputs through the
-    plain versions in-process: the five outputs must be equal."""
+    """The CLI as a subprocess on the card with both switches at
+    ``device``, and the same inputs in-process through the plain versions
+    and the native cores: the five outputs must be equal."""
     import tempfile
     from aligngraph2_tpu_torch.pipeline.driver import run_pipeline
     from tests.synth import make_dataset
@@ -679,7 +912,8 @@ def cli_run(args) -> None:
         res = subprocess.run(
             [sys.executable, "-m", "aligngraph2_tpu_torch.cli", *argv,
              "-o", out_cli], cwd=HERE, capture_output=True, text=True,
-            timeout=600)
+            timeout=600, env={**os.environ,
+                              **{var: "device" for var in SWITCHES}})
         cli_s = time.perf_counter() - t0
         if res.returncode != 0:
             raise SystemExit(f"cli exited {res.returncode}:\n"
@@ -688,7 +922,9 @@ def cli_run(args) -> None:
         cfg.runtime.plain = True
         cfg.runtime.progress = False
         t0 = time.perf_counter()
-        plain = run_pipeline(*paths[:3], out_plain, cfg, log=lambda *a: None)
+        with switches("native"):
+            plain = run_pipeline(*paths[:3], out_plain, cfg,
+                                 log=lambda *a: None)
         plain_s = time.perf_counter() - t0
         with open(os.path.join(out_cli, "metrics.json")) as f:
             metrics = json.load(f)
@@ -699,6 +935,7 @@ def cli_run(args) -> None:
                 same[name] = f1.read() == f2.read()
         emit({"phase": "cli", "genome_bp": len(ds["genome"]),
               "reads": len(ds["reads"]), "flags": CLI_FLAGS,
+              "cli_switches": {var: "device" for var in SWITCHES},
               "device": metrics["device"], "n_chains": metrics["n_chains"],
               "plain_n_chains": plain.stats["n_chains"],
               "files_equal": same, "cli_s": cli_s, "plain_s": plain_s,
@@ -715,6 +952,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--genome-mb", type=float, default=1.0)
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -737,8 +975,11 @@ def main() -> int:
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         on_cpu = slice_run(args, pool)
         long_read(args, on_cpu)
-    launches = pipeline(args)
+    launches, calls = pipeline(args)
+    device_paths(calls)
+    del calls
     cli_run(args)
+    emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     kernels = []
     for name, key, replaces in (
             ("banded_dp_static", "dp",

@@ -2,8 +2,9 @@
 CPU against the JAX package's: one noisy 6 kb backbone and the reads of
 the legacy pipeline dataset aligned to it by the JAX package's
 single-device aligner (records cross over as .ref text).  The consensus
-must be equal, exactly, through the native core and through the Python
-spec; the device backend must raise."""
+must be equal, exactly, through the native core, through the Python spec
+and through the device aggregation on the CPU; an unknown backend must
+raise."""
 
 import numpy as np
 import pytest
@@ -54,8 +55,14 @@ def test_consensus_equals_jax(backbone_case, monkeypatch, backend):
 
 
 def test_device_consensus_raises(backbone_case, monkeypatch):
-    backbone, text, _ = backbone_case
+    """``device`` is a consensus backend now (on the caller's device, here
+    the CPU) and equals the JAX package's consensus; a value that names no
+    backend raises."""
+    backbone, text, want = backbone_case
+    cfg = TConfig(window=WINDOW, top_k=TOP_K)
     monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_CONSENSUS", "device")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        consensus_backbone(backbone, TSet.from_ref_text(text),
-                           TConfig(window=WINDOW, top_k=TOP_K))
+    assert consensus_backbone(backbone, TSet.from_ref_text(text), cfg,
+                              threads=2, device="cpu") == want
+    monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_CONSENSUS", "auto")
+    with pytest.raises(ValueError, match="expected one of native, device"):
+        consensus_backbone(backbone, TSet.from_ref_text(text), cfg)

@@ -85,10 +85,23 @@ def test_native_edge_dedup_equals_numpy(seed):
 
 @pytest.mark.parametrize("merge", ["merge_edges", "merge_positions"])
 def test_device_merge_raises(monkeypatch, merge):
-    monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_MERGE", "device")
+    """``device`` is a merge backend now (on the graph's device, here the
+    CPU) and equals the spec; a value that names no backend raises."""
     pos, edges = _random_streams(0, n=100)
-    g = PAGraph(np.arange(300, dtype=np.int64), 6)
-    g.append_positions(*pos)
-    g.append_edges(*edges)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        getattr(g, merge)(*(() if merge == "merge_edges" else (10,)))
+    args = () if merge == "merge_edges" else (10,)
+    got = {}
+    for backend in ("device", "numpy"):
+        monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_MERGE", backend)
+        g = PAGraph(np.arange(300, dtype=np.int64), 6, device="cpu")
+        g.append_positions(*pos)
+        g.append_edges(*edges)
+        removed = getattr(g, merge)(*args)
+        g.finalize()
+        got[backend] = (removed, tg.graph_arrays(g))
+    assert got["device"][0] == got["numpy"][0]
+    for name in tg.GRAPH_ARRAYS:
+        np.testing.assert_array_equal(got["device"][1][name],
+                                      got["numpy"][1][name], err_msg=name)
+    monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_MERGE", "auto")
+    with pytest.raises(ValueError, match="expected one of native, device"):
+        getattr(g, merge)(*args)

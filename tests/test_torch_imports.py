@@ -19,12 +19,26 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+# the device paths import more inside their functions: run them once
+import numpy as np
+from aligngraph2_tpu_torch.consensus import device as cd
+from aligngraph2_tpu_torch.graph import merge_device as md
+md.merge_positions_device(*(np.array([1, 1]),) * 4, 10, "cpu")
+md.merge_edges_device(*(np.array([1, 1]),) * 3, 2, "cpu")
+cd.window_consensus_via_device(["ACGT"], [[(1, "AGGT", "ACGT", 1)]],
+                               device="cpu")
+cd.consensus_backbone_device("ACGTACGT", [], 4, 2, 2, 0, 1, device="cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "aligngraph2_tpu" or m.startswith("aligngraph2_tpu."))
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 15, names
+# the device merge and consensus, and the modules they bring
+assert {pkg.__name__ + "." + m for m in (
+    "graph.merge_device", "consensus.device", "consensus.reduced",
+    "consensus.native", "utils.transfer", "utils.segment",
+    "utils.backend")} <= set(names), names
 """
 
 
