@@ -5,7 +5,7 @@ its counterpart's relative path and names it in its docstring.  This
 package imports ``torch`` and numpy, never ``jax`` and never a module of
 ``aligngraph2_tpu``.
 
-Ported so far: the eight-stage pipeline on one device
+Ported: everything the JAX package does.  The eight-stage pipeline
 (``pipeline/driver.py``, ``cli.py``): stage 1's solid-k-mer counter
 (``ops/kmer.py``), the seed-extend aligner of stages 2, 3, 4 and 7
 (``align/aligner.py``) with host seeding in C++ (``ops/seedextend.py``,
@@ -15,8 +15,13 @@ kernels for Hopper (``ops/banded_static.py``, ``csrc/banded_static.cu``),
 the grouping, graph and traversal of stages 5 and 6 (``pipeline/``,
 ``graph/``, ``traverse/``, C++ cores ``native/ingest.cpp`` and
 ``native/traverse.cpp``) and the host consensus of stage 8
-(``consensus/``, ``native/poacns.cpp``).  Entry points run on the CUDA
-device unless the caller asks for the CPU.
+(``consensus/``, ``native/poacns.cpp``), with stage 6's merges and stage
+8's aggregation also as torch ops on the card (``graph/merge_device.py``,
+``consensus/device.py``), picked by a link probe (``utils/devprobe.py``).
+The mesh path (``parallel/``): device seeding over a block-sharded
+genome index and the adaptive band over every card, and multi-process
+runs over ``torch.distributed``.  Entry points run on the CUDA device
+unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

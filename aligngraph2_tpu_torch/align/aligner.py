@@ -34,10 +34,17 @@ under ``torch.profiler.record_function`` spans (``align.index``,
 ``align.seed``, ``align.prep``, ``align.dispatch``, ``align.finish``), so a
 profiler trace splits a stage's wall between them and the card.
 
-Left out: the mesh path (``mesh=``, multi-device seeding and extension)
-waits for the multi-GPU slice; the pallas -> scan degrade chain is gone
-(no path catches a kernel error); batches are not padded to the bucket's
-full size, since the kernels take runtime shapes.
+With ``mesh`` (``parallel/mesh.py``) the aligner takes the JAX package's
+mesh path instead: device seeding over a block index split on the mesh's
+``block`` axis, reads split on its ``data`` axis, host compaction of the
+live lanes, and the adaptive band on lanes split over every device
+(``parallel/sharded.py``).  Its records equal the JAX mesh path's for any
+mesh shape.  A failure there raises: unlike the JAX package, it does not
+fall back to the single-device path.
+
+Left out: the pallas -> scan degrade chain is gone (no path catches a
+kernel error); batches are not padded to the bucket's full size, since
+the kernels take runtime shapes.
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ from ..ops.banded_static import (Q_SENTINEL, banded_dp_static,
                                  banded_dp_static_ref,
                                  standard_frame_windows, traceback_static,
                                  traceback_static_ref)
-from ..ops.seedextend import (SeedIndex, effective_seed_k,
+from ..ops.seedextend import (Candidate, SeedIndex, effective_seed_k,
                               find_candidates_batch)
 from ..utils.timing import Progress
 from .records import Alignment, AlignmentSet
@@ -97,13 +104,20 @@ def resolve_device(device=None) -> torch.device:
 class LongReadAligner:
     """Seed-extend aligner over ``target_db``: host seeding, banded
     extension on ``device`` (see the module docstring for ``band`` and
-    ``plain``).  After :meth:`align_reads`, ``dp_cells`` holds the static
-    band's DP cells computed so far (rows run x W)."""
+    ``plain``); with ``mesh``, device seeding and the adaptive band on the
+    mesh's devices, which stand in for ``device``.  After
+    :meth:`align_reads`, ``dp_cells`` holds the static band's DP cells
+    computed so far (rows run x W)."""
 
     def __init__(self, target_db: SeqDatabase, cfg: AlignerConfig,
                  device=None, band: str | None = None, plain: bool = False,
-                 progress: bool = False, checkpoint_path: str | None = None,
+                 progress: bool = False, mesh=None,
+                 checkpoint_path: str | None = None,
                  checkpoint_flush_s: float = 300.0):
+        if mesh is not None:
+            if band == "static" or plain:
+                raise ValueError("the mesh path runs the adaptive band")
+            device, band = mesh.devices.flat[0], "adaptive"
         self.device = resolve_device(device)
         if band is None:
             band = "static" if self.device.type == "cuda" else "adaptive"
@@ -123,11 +137,18 @@ class LongReadAligner:
                         target_db.lengths.sum() / 1e6)
             cfg = dataclasses.replace(cfg, seed_k=k_eff)
         self.cfg = cfg
+        self.mesh = mesh
         self.checkpoint_path = checkpoint_path
         self.checkpoint_flush_s = checkpoint_flush_s
-        with record_function("align.index"):
-            self.index = SeedIndex(target_db, cfg.seed_k,
-                                   stride=cfg.seed_stride)
+        if mesh is None:
+            with record_function("align.index"):
+                self.index = SeedIndex(target_db, cfg.seed_k,
+                                       stride=cfg.seed_stride)
+        else:
+            self._block_index = None   # built on the first align_reads
+            self._dev_index = None
+            self._seeders = {}
+            self._extenders = {}
         self.progress = progress
         self.dp_cells = 0
         self.n_dedup_suppressed = 0
@@ -175,6 +196,8 @@ class LongReadAligner:
                 "skipping %d read(s) longer than max_read_len=%d "
                 "(raise AlignerConfig.max_read_len to align them)",
                 self.n_skipped_long, cfg.max_read_len)
+        if self.mesh is not None:
+            return self._align_reads_sharded(read_db, ids)
 
         # phase 1: batched seeding (host)
         with record_function("align.seed"):
@@ -241,10 +264,14 @@ class LongReadAligner:
         if ck is not None:
             ck.close()
 
-        # delta filter: drop alignments scoring < delta * read best
-        # (recovered mecat2ref+ '-y delta' semantics, see seedextend.py)
+        return self._delta_filter(out, best_per_read)
+
+    def _delta_filter(self, out: AlignmentSet, best_per_read) -> AlignmentSet:
+        """Drop alignments scoring < delta * their read's best (recovered
+        mecat2ref+ '-y delta' semantics, see seedextend.py); sort by
+        score."""
         kept = [a for a in out
-                if a.score >= cfg.delta * best_per_read.get(
+                if a.score >= self.cfg.delta * best_per_read.get(
                     a.query_name, a.score)]
         if self.n_dedup_suppressed:
             logger.info("suppressed %d duplicate alignment(s) "
@@ -461,6 +488,166 @@ class LongReadAligner:
             self._emit(read_db, rid, cand, codes, score, qstr, tstr,
                        qb, qe, rb, re, out, best_per_read)
 
+    # ---------------- mesh path ----------------
+
+    def _ensure_sharded_index(self) -> None:
+        from ..parallel.sharded import build_block_index, put_sharded_index
+        if self._block_index is not None:
+            return
+        cfg = self.cfg
+        longest = int(self.db.lengths.max()) if len(self.db) else 1
+        BL = min(cfg.block_size, longest)
+        BL = max((BL + 127) // 128 * 128, 4 * cfg.band_width, 256)
+        with record_function("align.index"):
+            self._block_index = build_block_index(
+                self.db, cfg.seed_k, BL,
+                pad_blocks_to=self.mesh.devices.shape[1])
+            self._dev_index = put_sharded_index(self._block_index, self.mesh)
+
+    def _get_seeder(self, NQ: int):
+        if NQ not in self._seeders:
+            from ..parallel.sharded import make_sharded_seeder
+            cfg = self.cfg
+            self._seeders[NQ] = make_sharded_seeder(
+                self.mesh, k=cfg.seed_k, BL=self._block_index.block_len,
+                bin_w=max(cfg.band_width // 2, 32),
+                min_hits=cfg.min_block_hits, alpha=cfg.alpha,
+                beta=cfg.beta, K=cfg.max_candidates, prune=cfg.prune_ratio)
+        return self._seeders[NQ]
+
+    def _get_extender(self, NQ: int, NT: int):
+        if NQ not in self._extenders:
+            from ..parallel.sharded import make_sharded_extender
+            cfg = self.cfg
+            self._extenders[NQ] = make_sharded_extender(
+                self.mesh, W=cfg.band_width, match=cfg.match_score,
+                mismatch=cfg.mismatch_score, gap=cfg.gap_score,
+                x_drop=cfg.x_drop, max_steps=NQ + NT)
+        return self._extenders[NQ]
+
+    def _align_reads_sharded(self, read_db: SeqDatabase,
+                             ids: Sequence[int]) -> AlignmentSet:
+        """Mesh path of align_reads: device seeding over the block-sharded
+        index, host lane compaction, extension on every device.  Output
+        is bit-identical for any mesh shape."""
+        cfg = self.cfg
+        W = cfg.band_width
+        K = cfg.max_candidates
+        self._ensure_sharded_index()
+        idx = self._block_index
+        data_par = self.mesh.devices.shape[0]
+        n_dev = self.mesh.size
+
+        buckets: dict[int, list[int]] = {}
+        for rid in ids:
+            buckets.setdefault(_bucket(read_db.size(rid)), []).append(rid)
+
+        out = AlignmentSet()
+        best_per_read: dict[str, int] = {}
+        # chunk partitioning depends on the mesh shape, so the resume
+        # token must too (a resume on a different mesh restarts cleanly)
+        mesh_kind = "mesh" + "x".join(str(int(s))
+                                      for s in self.mesh.shape.values())
+        ck, ck_cursor = self._make_checkpoint(read_db, ids, mesh_kind, out,
+                                              best_per_read)
+        watermark = len(out)
+        consumed = 0   # reads consumed, in deterministic bucket order
+        bar = Progress(len(ids), enabled=self.progress)
+        for NQ in sorted(buckets):
+            NT = NQ + 2 * W
+            per_dev = max(1, min(64, (64 << 20) // (NQ * W)))
+            B = data_par * per_dev
+            lane_B = n_dev * per_dev
+            seeder = self._get_seeder(NQ)
+            extender = self._get_extender(NQ, NT)
+            idsb = buckets[NQ]
+            for s in range(0, len(idsb), B):
+                chunk = idsb[s:s + B]
+                if consumed + len(chunk) <= ck_cursor:
+                    consumed += len(chunk)   # resumed past this chunk
+                    bar.update(len(chunk))
+                    continue
+                rows = chunk + [-1] * (B - len(chunk))
+                q_fwd = np.zeros((B, NQ), np.uint8)
+                q_rev = np.zeros((B, NQ), np.uint8)
+                lens = np.zeros(B, np.int32)
+                for r, rid in enumerate(chunk):
+                    cf = read_db.get_codes(rid)
+                    q_fwd[r, :len(cf)] = cf
+                    q_rev[r, :len(cf)] = revcomp_codes(cf)
+                    lens[r] = len(cf)
+                with record_function("align.seed"):
+                    sel, c_block, c_strand, c_diag, c_cnt, c_score = seeder(
+                        q_fwd, q_rev, lens, *self._dev_index)
+
+                # host lane compaction: live (read, candidate) pairs only
+                lanes = []  # (row, k, tid, bstart, ws, c0)
+                for r in range(len(chunk)):
+                    for kk in range(K):
+                        if not sel[r, kk]:
+                            continue
+                        blk = int(c_block[r, kk])
+                        diag = int(c_diag[r, kk])
+                        tid = int(idx.block_seq[blk])
+                        bstart = int(idx.block_start[blk])
+                        ws = max(0, diag - W)
+                        if min(self.db.size(tid) - (bstart + ws), NT) <= 0:
+                            continue
+                        lanes.append((r, kk, tid, bstart, ws, diag - ws))
+                for ls in range(0, len(lanes), lane_B):
+                    self._extend_lanes(read_db, extender, lanes[ls:ls + lane_B],
+                                       lane_B, NQ, NT, rows, q_fwd, q_rev,
+                                       lens, c_strand, c_diag, c_cnt, c_score,
+                                       out, best_per_read)
+                bar.update(len(chunk))
+                consumed += len(chunk)
+                if ck is not None and ck.should_flush():
+                    ck.flush(out.alignments[watermark:], consumed)
+                    watermark = len(out)
+        if ck is not None:
+            ck.close()
+        return self._delta_filter(out, best_per_read)
+
+    def _extend_lanes(self, read_db, extender, lchunk, LB, NQ, NT, rows,
+                      q_fwd, q_rev, lens, c_strand, c_diag, c_cnt, c_score,
+                      out: AlignmentSet, best_per_read) -> None:
+        """One chunk of live lanes through the sharded extender, padded to
+        LB lanes; emits its records."""
+        with record_function("align.prep"):
+            q = np.zeros((LB, NQ), np.uint8)
+            qlen = np.zeros(LB, np.int32)
+            t = np.zeros((LB, NT), np.uint8)
+            tl = np.zeros(LB, np.int32)
+            c0 = np.zeros(LB, np.int32)
+            for li, (r, kk, tid, bstart, ws, c0v) in enumerate(lchunk):
+                q[li] = q_fwd[r] if c_strand[r, kk] else q_rev[r]
+                qlen[li] = lens[r]
+                win = self.db.get_codes(tid)[bstart + ws:bstart + ws + NT]
+                t[li, :len(win)] = win
+                tl[li] = len(win)
+                c0[li] = c0v
+        with record_function("align.dispatch"):
+            e_score, e_moves, e_si, e_tb = extender(q, qlen, t, tl, c0)
+        with record_function("align.finish"):
+            for li, (r, kk, tid, bstart, ws, c0v) in enumerate(lchunk):
+                score = int(e_score[li])
+                if score <= 0:
+                    continue
+                forward = bool(c_strand[r, kk])
+                codes = (q_fwd[r] if forward else q_rev[r])[:lens[r]]
+                win = self.db.get_codes(tid)[bstart + ws:bstart + ws + NT]
+                qb = int(e_si[li])
+                tb = int(e_tb[li])
+                qstr, tstr, qe, te = moves_to_strings(e_moves[li], codes, qb,
+                                                      tb, win)
+                cand = Candidate(tid=tid, forward=forward,
+                                 diag=bstart + int(c_diag[r, kk]),
+                                 hits=int(c_cnt[r, kk]),
+                                 score=float(c_score[r, kk]))
+                self._emit(read_db, rows[r], cand, codes, score, qstr, tstr,
+                           qb, qe, bstart + ws + tb, bstart + ws + te, out,
+                           best_per_read)
+
     @staticmethod
     def _is_duplicate(out: AlignmentSet, a: Alignment) -> bool:
         """Adjacent seeding candidates can converge to the same alignment
@@ -478,7 +665,7 @@ class LongReadAligner:
 def align_chunked(target_db: SeqDatabase, query_db: SeqDatabase,
                   cfg: AlignerConfig, progress: bool = False,
                   checkpoint_path: str | None = None, device=None,
-                  band: str | None = None, plain: bool = False
+                  band: str | None = None, plain: bool = False, mesh=None
                   ) -> AlignmentSet:
     """Contig->reference alignment via fixed-size pseudo-reads.
 
@@ -488,6 +675,6 @@ def align_chunked(target_db: SeqDatabase, query_db: SeqDatabase,
     the reference's MummerAlignDatabaseV2 consumes.
     """
     return LongReadAligner(target_db, cfg, device=device, band=band,
-                           plain=plain, progress=progress,
+                           plain=plain, progress=progress, mesh=mesh,
                            checkpoint_path=checkpoint_path
                            ).align_chunked(query_db)

@@ -3,9 +3,9 @@
 Counterpart of ``aligngraph2_tpu/config.py``.  ``AlignerConfig``,
 ``GraphConfig``, ``PreProcessConfig`` and ``ConsensusConfig`` are field-
 for-field copies, so ``AlignerConfig(**dataclasses.asdict(jax_cfg))``
-builds the same configuration on this side.  ``RuntimeConfig`` leaves out
-the mesh fields (``data_axis``, ``block_axis``, ``sharded_align``,
-``block_parallel``) until the multi-GPU slice, and gains ``device`` and
+builds the same configuration on this side.  ``RuntimeConfig`` keeps the
+mesh fields (``data_axis``, ``block_axis``, ``sharded_align``,
+``block_parallel``; ``parallel/mesh.py``) and gains ``device`` and
 ``plain``, which the driver hands to every aligner it builds.
 """
 
@@ -177,6 +177,14 @@ class RuntimeConfig:
     """Host/device execution knobs."""
 
     threads: int = 16               # host worker threads for IO-bound stages
+    data_axis: str = "data"         # mesh axis: reads data-parallel
+    block_axis: str = "block"       # mesh axis: genome-block sharding
+    sharded_align: bool | None = None  # run alignment under the device mesh
+                                    # (None = auto: sharded iff the device
+                                    # is cuda and more than one card is
+                                    # present)
+    block_parallel: int | None = None  # devices on the block axis
+                                    # (None = auto, see parallel/mesh.py)
     progress: bool = True           # console progress bar on long loops
                                     # (MyTools::progress equivalent)
     profile_dir: Optional[str] = None  # write a torch.profiler trace here

@@ -106,7 +106,7 @@ def consensus_backbone(backbone: str, alns: AlignmentSet,
     """Full pa_cns flow for one backbone.
 
     Backend dispatch (ALIGNGRAPH2_TPU_TORCH_CONSENSUS):
-      * ``native`` (the default) — the host C++ core (native/poacns.cpp),
+      * ``native`` — the host C++ core (native/poacns.cpp),
         one call per backbone, std::thread window parallelism; the
         Python spec below when the core is not available, or with
         ``ALIGNGRAPH2_TPU_TORCH_NO_NATIVE=1``;
@@ -114,12 +114,13 @@ def consensus_backbone(backbone: str, alns: AlignmentSet,
         torch ops on ``device``, native reduced merge
         (consensus/device.py); a failure raises, with no fallback to the
         host;
-      * ``spec`` — the pure-Python spec below.
+      * ``spec`` — the pure-Python spec below;
+      * ``auto``, the default — ``native`` (utils/devprobe.py says why).
     All three are bit-identical (tests/test_torch_consensus.py,
     tests/test_torch_consensus_device.py)."""
     from ..utils.backend import resolve_backend
     backend = resolve_backend("ALIGNGRAPH2_TPU_TORCH_CONSENSUS",
-                              ("native", "device", "spec"))
+                              ("native", "device", "spec"), device)
     if backend == "device":
         from .device import consensus_backbone_device
         return consensus_backbone_device(

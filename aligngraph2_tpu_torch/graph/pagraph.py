@@ -5,9 +5,10 @@ Re-designs the reference PABruijnGraph/KMerAdjNode
 AlignGraph2 PAGraph/src/tools/node/KMerAdjNode.{hpp,tcc}) from
 per-node mutex-guarded vectors into flat arrays + sort/segment reductions.
 Copy of ``aligngraph2_tpu/graph/pagraph.py``, except the merge dispatch:
-``ALIGNGRAPH2_TPU_TORCH_MERGE`` takes ``native`` (the default), ``numpy``
-or ``device`` (graph/merge_device.py, torch ops on the graph's
-``device``, which never falls back); there is no link probe.
+``ALIGNGRAPH2_TPU_TORCH_MERGE`` takes ``native``, ``numpy``, ``device``
+(graph/merge_device.py, torch ops on the graph's ``device``, which never
+falls back) or ``auto``, the default, which utils/devprobe.py resolves
+from the link to the graph's ``device``.
 
   * nodes: the sorted unique solid k-mer codes; a node id is the rank of
     its code (identical to the reference's dense index,
@@ -317,15 +318,15 @@ class PAGraph:
             self._edge_buf = None
             self._edge_n = 0
 
-    @staticmethod
-    def _merge_backend() -> str:
-        """Merge dispatch on ALIGNGRAPH2_TPU_TORCH_MERGE: 'native' (the
-        default, C++ core), 'device' (torch sort/segment ops on the
-        graph's device, graph/merge_device.py) or 'numpy' (the in-file
-        specification)."""
+    def _merge_backend(self) -> str:
+        """Merge dispatch on ALIGNGRAPH2_TPU_TORCH_MERGE: 'native' (C++
+        core), 'device' (torch sort/segment ops on the graph's device,
+        graph/merge_device.py), 'numpy' (the in-file specification) or
+        'auto', the default (utils/devprobe.py: 'device' on a fast link
+        to the graph's device, else 'native')."""
         from ..utils.backend import resolve_backend
         return resolve_backend("ALIGNGRAPH2_TPU_TORCH_MERGE",
-                               ("native", "device", "numpy"))
+                               ("native", "device", "numpy"), self.device)
 
     def merge_edges(self) -> int:
         """Exact (from, to, step) dedup; returns removed count

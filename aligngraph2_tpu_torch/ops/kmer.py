@@ -19,8 +19,8 @@ copy.  The dense counter (``kmer_codes_batch``, ``KmerCounter``,
 explicit device: k shift-or steps on a padded (B, L) batch, then one
 ``index_add_`` into a ``4^k + 1`` int32 table whose last slot takes the
 padding.  The pipeline's stage 1 calls ``solid_set``, which does not
-touch the device.  ``solid_set_sharded`` (multi-host counting) waits for
-the multi-GPU slice.
+touch the device; ``solid_set_sharded`` is its multi-process form
+(``parallel/distributed.py`` merges the counts).
 """
 
 from __future__ import annotations
@@ -200,6 +200,20 @@ def solid_set(db, k: int, threshold: float = 0.2) -> np.ndarray:
                 return np.arange(1 << (2 * k), dtype=np.int64)
             return codes
     return count_reads_sorted(db, k).solid_codes(threshold)
+
+
+def solid_set_sharded(db, k: int, threshold: float,
+                      shard_ids: np.ndarray, device="cpu") -> np.ndarray:
+    """Process-sharded kmer_counter: each process counts only its shard of
+    the reads, the sparse counts are merged across processes (a dense
+    table summed on ``device`` when it fits, a bytes gather otherwise),
+    and the exact cutoff rule runs on the merged counts — the same solid
+    set at any process count."""
+    from ..parallel.distributed import merge_host_counts
+    sc = count_reads_sorted(db, k, ids=shard_ids)
+    codes, counts = merge_host_counts(sc.codes, sc.counts_arr, k,
+                                      device=device)
+    return SparseCounts(codes, counts, k).solid_codes(threshold)
 
 
 def count_reads_sorted(db, k: int, chunk_bases: int = 256_000_000,

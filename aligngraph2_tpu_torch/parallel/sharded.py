@@ -1,0 +1,420 @@
+"""Sharded alignment: block-sharded genome seeding and data-parallel
+banded extension over the (data, block) device mesh.
+
+Counterpart of ``aligngraph2_tpu/parallel/sharded.py``, the mesh path of
+``LongReadAligner.align_reads`` (the single-device path keeps host
+seeding and the static band):
+
+  1. the target genome is chopped into overlapping blocks; each block's
+     k-mers are indexed (``build_block_index``, a numpy copy) and the
+     index is split over the ``block`` mesh axis, each block shard on
+     every device of its mesh column (``put_sharded_index``);
+  2. SEED: reads are split over the ``data`` axis; each (data, block)
+     device scores its rows against its blocks — per (read, strand,
+     block) a diagonal-bin hit histogram with adjacent-bin smoothing and
+     per-block top-K bins (``_seed_block_candidates``); the tables of a
+     data row are concatenated in block order on the row's first device
+     (the JAX ``all_gather``), and a greedy near-diagonal dedup plus the
+     alpha/beta hit-count clamp selects each read's top-K candidates
+     (``_select_read_candidates``);
+  3. the host compacts the (read, candidate) table to live lanes only and
+     gathers each lane's target window (``align/aligner.py``);
+  4. EXTEND: the adaptive banded DP and its traceback
+     (``ops/banded_dp.py``) on the live lanes, split over every device
+     of the mesh (``_extend_body``).
+
+The JAX functions are XLA, not Pallas, so here they are torch ops on each
+shard's device, value for value: int32 arithmetic that wraps where JAX's
+wraps, floor division, ``lax.top_k``'s tie rule (the lower bin first) and
+float32 clamp arithmetic.  The seeder and the extender queue every
+shard's work before they copy any result back, so several cards overlap;
+a shard whose rows are all padding (length 0) is not run, since such a
+row yields no candidate and such a lane scores 0.  On a card the dedup's
+sequential loop replays CUDA graphs of 64 steps (``ops/banded_dp.py``'s
+``_loop``).
+
+Outputs are bit-identical for any mesh shape: the per-block tables and
+their order do not depend on shard boundaries, host compaction is
+deterministic, and extension lanes are independent.
+
+Deviations from the host seeding path (``ops/seedextend.py``), kept from
+the JAX package's design for fixed shapes: a bin's diagonal estimate is
+the integer mean of its members' diagonals (host: median), and at most
+``occ`` occurrences per (query k-mer, block) are enumerated (host: all
+up to ``max_occ``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..io.seqdb import SeqDatabase
+from ..ops.banded_dp import _jax_index, _loop, banded_align, traceback
+from ..ops.kmer import kmer_codes_batch, kmer_codes_np
+
+INT32_MAX = np.iinfo(np.int32).max
+
+# (blocks x query positions) elements one pass of _seed_block_candidates
+# holds per array
+_SEED_CELLS = 1 << 22
+
+
+class BlockIndex(NamedTuple):
+    """Genome split into overlapping blocks with per-block k-mer indexes."""
+    blocks: np.ndarray        # (NB, BL) uint8 codes (pad rows = 0)
+    block_lens: np.ndarray    # (NB,) int32 (0 for pad rows)
+    block_seq: np.ndarray     # (NB,) int32 originating target sequence id
+    block_start: np.ndarray   # (NB,) int32 start offset within that
+                              # sequence (per-sequence coords < 2^31)
+    sorted_codes: np.ndarray  # (NB, L) int32 sorted k-mer codes, pad=INT32_MAX
+    sorted_pos: np.ndarray    # (NB, L) int32 in-block k-mer positions
+    k: int
+    block_len: int
+    overlap: int
+
+
+def build_block_index(db: SeqDatabase, k: int, block_len: int,
+                      overlap: int | None = None,
+                      pad_blocks_to: int = 1) -> BlockIndex:
+    """Chop every target sequence into overlapping blocks and index each
+    block's k-mers.  Overlap (default a quarter block) keeps alignments
+    near block boundaries findable in at least one block; ``pad_blocks_to``
+    pads the block count to a multiple (empty rows) so the arrays split
+    evenly over the block mesh axis."""
+    if overlap is None:
+        overlap = block_len // 4
+    # int32 sorted-code arrays bound the device index to k <= 15
+    # (AlignerConfig.seed_k_max defaults to 15 for this reason)
+    if k > 15:
+        raise ValueError(f"block index supports k <= 15, got {k}")
+    stride = max(block_len - overlap, 1)
+    pieces = []  # (seq_id, start, codes)
+    for i in range(len(db)):
+        codes = db.get_codes(i)
+        for s in range(0, max(len(codes) - overlap, 1), stride):
+            piece = codes[s:s + block_len]
+            if len(piece) < k:
+                continue
+            pieces.append((i, s, piece))
+    nb = len(pieces)
+    nb_pad = max(((nb + pad_blocks_to - 1) // pad_blocks_to)
+                 * pad_blocks_to, pad_blocks_to)
+    idx_len = max((len(p) - k + 1 for _, _, p in pieces), default=1)
+    blocks = np.zeros((nb_pad, block_len), np.uint8)
+    lens = np.zeros(nb_pad, np.int32)
+    seq_id = np.zeros(nb_pad, np.int32)
+    start = np.zeros(nb_pad, np.int32)
+    s_codes = np.full((nb_pad, idx_len), INT32_MAX, np.int32)
+    s_pos = np.zeros((nb_pad, idx_len), np.int32)
+    for bi, (sid, st, piece) in enumerate(pieces):
+        blocks[bi, :len(piece)] = piece
+        lens[bi] = len(piece)
+        seq_id[bi] = sid
+        start[bi] = st
+        kc = kmer_codes_np(piece, k)
+        order = np.argsort(kc, kind="stable")
+        s_codes[bi, :len(kc)] = kc[order]
+        s_pos[bi, :len(kc)] = order
+    return BlockIndex(blocks, lens, seq_id, start, s_codes, s_pos,
+                      k, block_len, overlap)
+
+
+def _on(dev: torch.device):
+    """Make ``dev`` the current card while a shard's work is queued (CUDA
+    graphs are captured on the current card)."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+# ---------------------------------------------------------------------------
+# SEED step
+
+
+def _seed_block_candidates(q_codes, q_valid, sorted_codes, sorted_pos, *,
+                           NQ, nbins, bin_w, occ, max_occ, top_t):
+    """Per (stream, local block): top-T candidate diagonal bins.
+
+    q_codes/q_valid: (S, NK) int32/bool; sorted_codes/pos: (NB_l, L)
+    int32, on one device.  Returns cnt (S, NB_l, T) int32 smoothed hit
+    counts and diag (S, NB_l, T) int32 block-local diagonal estimates.
+    Blocks go in groups that bound the working set."""
+    S, NK = q_codes.shape
+    NB, L = sorted_codes.shape
+    dev = q_codes.device
+    qpos = torch.arange(NK, dtype=torch.int32, device=dev)
+    # lax.top_k's order: count descending, the lower bin first among equal
+    # counts; the key is unique per bin, so topk has no tie to break
+    tie = (nbins - 1) - torch.arange(nbins, dtype=torch.int64, device=dev)
+    cnts, diags = [], []
+    per = max(1, _SEED_CELLS // max(S * NK, 1))
+    for b0 in range(0, NB, per):
+        sc = sorted_codes[b0:b0 + per]
+        sp = sorted_pos[b0:b0 + per]
+        nb = sc.shape[0]
+        qc = q_codes.reshape(1, S * NK).expand(nb, S * NK).contiguous()
+        lo = torch.searchsorted(sc, qc, out_int32=True)
+        n = (torch.searchsorted(sc, qc, right=True, out_int32=True)
+             - lo).view(nb, S, NK)
+        lo = lo.view(nb, S, NK)
+        ok = q_valid[None] & (n > 0) & (n <= max_occ)
+        hist = torch.zeros((nb, S, nbins + 1), dtype=torch.int32,
+                           device=dev)
+        dsum = torch.zeros_like(hist)
+        for o in range(occ):
+            hit = ok & (o < n)
+            at = (lo + o).clamp(max=L - 1).view(nb, S * NK).long()
+            diag = sp.gather(1, at).view(nb, S, NK) - qpos + NQ
+            b = (diag // bin_w).clamp(0, nbins - 1)
+            b = torch.where(hit, b, nbins).long()   # spill slot for non-hits
+            hist.scatter_add_(2, b, torch.ones_like(diag))
+            dsum.scatter_add_(2, b, torch.where(hit, diag, 0))
+        hist, dsum = hist[..., :nbins], dsum[..., :nbins]
+        # adjacent-bin pair smoothing (ops/seedextend.py's bin+1 credit)
+        sm_h = hist + torch.nn.functional.pad(hist[..., 1:], (0, 1))
+        sm_d = dsum + torch.nn.functional.pad(dsum[..., 1:], (0, 1))
+        bidx = (sm_h.long() * nbins + tie).topk(top_t, dim=-1).indices
+        cnt = sm_h.gather(-1, bidx)
+        d = sm_d.gather(-1, bidx)
+        cnts.append(cnt)
+        diags.append(torch.where(cnt > 0, d // cnt.clamp(min=1) - NQ, 0))
+    # (NB_l, S, T) -> (S, NB_l, T)
+    return (torch.cat(cnts).permute(1, 0, 2),
+            torch.cat(diags).permute(1, 0, 2))
+
+
+def _select_read_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta,
+                            bin_w, prune=0.0):
+    """Global per-read candidate selection over the gathered table.
+
+    cnt/gdiag: (B, N) int32; tid: (N,) or (B, N) int32 — per read the
+    flattened (strand, block, T) candidates, fwd strand first then
+    block-ascending (strand is folded into ``tid`` by sign so dedup never
+    merges across strands).  Returns (sel (B, K) bool, idx (B, K) int32
+    into the flat arrays, score (B, K) float32)."""
+    B, N = cnt.shape
+    dev = cnt.device
+    tid = tid.expand(B, N)
+    valid = cnt >= min_hits
+    # stable cnt-descending order (ties keep enumeration order, matching
+    # the host's stable sort in _finalize_read_candidates)
+    order = torch.sort(-cnt, dim=1, stable=True).indices
+    s_cnt = cnt.gather(1, order)
+    s_tid = tid.gather(1, order)
+    s_gd = gdiag.gather(1, order)
+    s_valid = valid.gather(1, order)
+
+    def step(S):
+        """Candidate S["i"]: kept iff valid and no kept candidate before it
+        lies on the same strand and target within bin_w diagonals."""
+        i1 = S["i"].view(1)
+        kept = S["kept"]
+        near = kept & (s_tid == s_tid.index_select(1, i1)) \
+            & ((s_gd - s_gd.index_select(1, i1)).abs() <= bin_w)
+        keep = s_valid.index_select(1, i1) & ~near.any(1, keepdim=True)
+        kept.index_copy_(1, i1, keep)
+        return dict(kept=kept, i=S["i"] + 1)
+
+    S = dict(kept=torch.zeros((B, N), dtype=torch.bool, device=dev),
+             i=torch.zeros((), dtype=torch.int64, device=dev))
+    _loop(step, S, N, lambda S: False)
+    kept = S["kept"]
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    n_kept = kept.sum(1, dtype=torch.int32).clamp(min=1)
+    mean = torch.where(kept, s_cnt, 0).float().sum(1) / n_kept.float()
+    score = torch.clamp(s_cnt.float(), min=(f32(alpha) * mean)[:, None],
+                        max=(f32(beta) * mean)[:, None])
+    if prune > 0.0:
+        # pre-extension prune on the CLAMPED score, in float32 as the host
+        # path does (ops/seedextend.py _finalize_read_candidates)
+        best_s = torch.where(kept, score, 0).amax(1)
+        kept = kept & (score >= f32(prune) * best_s[:, None])
+    # the clamp is monotone, so cnt-descending kept order IS
+    # score-descending: the global top-K are the first K kept entries
+    krank = kept.cumsum(1, dtype=torch.int32) - 1
+    pick = kept & (krank < K)
+    slot = torch.where(pick, krank, K).long()
+
+    def place(src, dtype):
+        out = torch.zeros((B, K + 1), dtype=dtype, device=dev)
+        return out.scatter_(1, slot, src.to(dtype))[:, :K]
+
+    return (place(pick, torch.bool), place(order, torch.int32),
+            place(score, torch.float32))
+
+
+def _seed_body(q_fwd, q_rev, read_lens, index_row, *, k, BL, bin_w,
+               min_hits, occ, max_occ, alpha, beta, K, prune):
+    """One data row of the mesh: seed its reads against every block shard
+    and select each read's top-K candidates.
+
+    q_fwd/q_rev: (B, NQ) uint8 and read_lens (B,) on the row's first
+    device; index_row: one (block_seq, block_start, sorted_codes,
+    sorted_pos) per block shard, each on its device.  Returns (sel,
+    c_block, c_strand, c_diag, c_cnt, score), each (B, K), on the row's
+    first device."""
+    B, NQ = q_fwd.shape
+    home = q_fwd.device
+    nbins = int(np.ceil((BL + NQ) / bin_w)) + 2
+    cnts, diags, g_seq, g_start = [], [], [], []
+    for bseq, bstart, sc, sp in index_row:
+        dev = sc.device
+        with _on(dev):
+            lens = read_lens.to(dev, non_blocking=True)
+            per_strand = []
+            for q in (q_fwd, q_rev):
+                codes, valid = kmer_codes_batch(
+                    q.to(dev, non_blocking=True), lens, k)
+                per_strand.append(_seed_block_candidates(
+                    codes, valid, sc, sp, NQ=NQ, nbins=nbins, bin_w=bin_w,
+                    occ=occ, max_occ=max_occ, top_t=K))
+        # (B, 2, NB_l, T), gathered on the row's first device in block
+        # order (the JAX all_gather over the block axis)
+        cnts.append(torch.stack([c for c, _ in per_strand], 1).to(home))
+        diags.append(torch.stack([d for _, d in per_strand], 1).to(home))
+        g_seq.append(bseq.to(home))
+        g_start.append(bstart.to(home))
+    cnt = torch.cat(cnts, 2)
+    diag = torch.cat(diags, 2)
+    g_seq = torch.cat(g_seq)
+    g_start = torch.cat(g_start)
+
+    NBg = g_seq.shape[0]
+    N = 2 * NBg * K
+    # flat per-candidate metadata, fwd strand first then rev (the host
+    # enumerates fwd/rev streams in that order)
+    strand_f = torch.tensor([1, 0], dtype=torch.int32,
+                            device=home).repeat_interleave(NBg * K)
+    block_f = torch.arange(NBg, dtype=torch.int32,
+                           device=home).repeat_interleave(K).repeat(2)
+    cnt2 = cnt.reshape(B, N)
+    diag2 = diag.reshape(B, N)
+    bl = block_f.long()
+    tid_f = (g_seq[bl] + 1) * torch.where(strand_f == 1, 1, -1).int()
+    gdiag2 = g_start[bl][None, :] + diag2
+    sel, idx, score = _select_read_candidates(
+        cnt2, tid_f, gdiag2, K=K, min_hits=min_hits, alpha=alpha, beta=beta,
+        bin_w=bin_w, prune=prune)
+    il = idx.long()
+    return (sel, block_f[il], strand_f[il] == 1, diag2.gather(1, il),
+            cnt2.gather(1, il), score)
+
+
+def make_sharded_seeder(mesh, *, k, BL, bin_w, min_hits, occ=4,
+                        max_occ=256, alpha=0.5, beta=2.0, K=8, prune=0.0):
+    """The seed step over ``mesh``: a callable
+    ``(q_fwd, q_rev, read_lens, *put_sharded_index(...))`` of host arrays
+    (B rows, B a multiple of the data axis) returning host arrays (sel,
+    c_block, c_strand, c_diag, c_cnt, score), each (B, K), in row order."""
+    data_par = mesh.devices.shape[0]
+    kw = dict(k=k, BL=BL, bin_w=bin_w, min_hits=min_hits, occ=occ,
+              max_occ=max_occ, alpha=alpha, beta=beta, K=K, prune=prune)
+
+    def seeder(q_fwd, q_rev, read_lens, block_lens, block_seq, block_start,
+               sorted_codes, sorted_pos):
+        B = len(read_lens)
+        per = B // data_par
+        outs = []
+        for d in range(data_par):
+            rows = slice(d * per, (d + 1) * per)
+            if not np.any(read_lens[rows]):
+                outs.append(None)   # padding rows only
+                continue
+            home = mesh.devices[d, 0]
+            with _on(home):
+                q_f, q_r, ln = (torch.from_numpy(np.ascontiguousarray(
+                    x[rows])).to(home, non_blocking=True)
+                    for x in (q_fwd, q_rev, read_lens))
+                outs.append(_seed_body(
+                    q_f, q_r, ln,
+                    [(block_seq[d, b], block_start[d, b],
+                      sorted_codes[d, b], sorted_pos[d, b])
+                     for b in range(mesh.devices.shape[1])], **kw))
+        empty = (np.zeros((per, K), bool), np.zeros((per, K), np.int32),
+                 np.ones((per, K), bool), np.zeros((per, K), np.int32),
+                 np.zeros((per, K), np.int32),
+                 np.zeros((per, K), np.float32))
+        return tuple(np.concatenate([
+            empty[j] if o is None else o[j].cpu().numpy() for o in outs])
+            for j in range(6))
+
+    return seeder
+
+
+# ---------------------------------------------------------------------------
+# EXTEND step
+
+
+def _extend_body(q, qlen, t, tlen, c0, *, W, match, mismatch, gap, x_drop,
+                 max_steps):
+    """Adaptive banded DP and traceback of one lane shard, on its device.
+    Returns (score, moves, start row si, start window column tb)."""
+    res = banded_align(q, qlen, t, tlen, c0, W=W, match=match,
+                       mismatch=mismatch, gap=gap, x_drop=x_drop)
+    moves, _, si, sj = traceback(res.dirs, res.centers, res.best_i,
+                                 res.best_j, max_steps=max_steps)
+    # start column -> window coordinate (needs the per-row band centers,
+    # which never leave the device): tb = si + centers[si] - W/2 + sj
+    cen_si = res.centers.gather(
+        1, _jax_index(si, res.centers.shape[1])[:, None]).squeeze(1)
+    tb = si + cen_si - W // 2 + sj
+    return res.score, moves, si, tb
+
+
+def make_sharded_extender(mesh, *, W, match=2, mismatch=-4, gap=-3,
+                          x_drop=0, max_steps):
+    """The extend step with lanes split over ALL devices of ``mesh`` (the
+    lane dim is pure data parallelism; both mesh axes serve it): a
+    callable ``(q, qlen, t, tlen, c0)`` of host arrays (LB lanes, LB a
+    multiple of the device count) returning host arrays (score (LB,),
+    moves (LB, max_steps), si (LB,), tb (LB,)) in lane order."""
+    devices = list(mesh.devices.flat)
+    kw = dict(W=W, match=match, mismatch=mismatch, gap=gap, x_drop=x_drop,
+              max_steps=max_steps)
+
+    def extender(q, qlen, t, tlen, c0):
+        per = len(qlen) // len(devices)
+        outs = []
+        for s, dev in enumerate(devices):
+            lanes = slice(s * per, (s + 1) * per)
+            if not np.any(qlen[lanes]):
+                outs.append(None)   # padding lanes only: each scores 0
+                continue
+            with _on(dev):
+                outs.append(_extend_body(*(
+                    torch.from_numpy(np.ascontiguousarray(x[lanes])).to(
+                        dev, non_blocking=True)
+                    for x in (q, qlen, t, tlen, c0)), **kw))
+        empty = (np.zeros(per, np.int32),
+                 np.zeros((per, max_steps), np.uint8),
+                 np.zeros(per, np.int32), np.zeros(per, np.int32))
+        return tuple(np.concatenate([
+            empty[j] if o is None else o[j].cpu().numpy() for o in outs])
+            for j in range(4))
+
+    return extender
+
+
+def put_sharded_index(index: BlockIndex, mesh) -> tuple:
+    """The block index split over the mesh's block axis: (block_lens,
+    block_seq, block_start, sorted_codes, sorted_pos), each a (data,
+    block) object array holding that device's block shard as a tensor on
+    it (one copy per device; none where a device already holds it)."""
+    data_par, block_par = mesh.devices.shape
+    fields = (index.block_lens, index.block_seq, index.block_start,
+              index.sorted_codes, index.sorted_pos)
+    per = len(index.block_lens) // block_par
+    out = tuple(np.empty(mesh.devices.shape, dtype=object) for _ in fields)
+    for b in range(block_par):
+        host = [torch.from_numpy(np.ascontiguousarray(f[b * per:(b + 1) * per]))
+                for f in fields]
+        for d in range(data_par):
+            for o, h in zip(out, host):
+                o[d, b] = h.to(mesh.devices[d, b])
+    return out

@@ -8,6 +8,9 @@ g++, in parallel), then prints one JSON line per phase:
 
   card    the card, the build seconds and ptxas' register report; any
           kernel or host core that fails to build fails the run;
+  probe   the link probe of utils/devprobe.py: one 16 MB copy each way,
+          MB/s up and down, and what ``auto`` resolves to for the merge
+          and consensus switches;
   gate    each CUDA kernel against its plain torch version on the card, on
           planted lanes (B=1024, NQ=8192; W=256 and 512; x_drop 0 and
           250; the aligner's batch for the 16384 bucket, B=384, W=256,
@@ -27,6 +30,16 @@ g++, in parallel), then prints one JSON line per phase:
           (no static-band launch), and on the CPU in a child process
           started with the plain phase: the .ref text must be equal;
           both walls;
+  mesh    read -> contig of the stage phase's dataset for its first
+          MESH_READS reads through the mesh path (parallel/) on a 1x1
+          mesh of the card: block-sharded device seeding and the adaptive
+          band, no static-band launch; wall, reads/s, lanes, blocks, the
+          device index's bytes, and per sharded function its calls, card
+          ms per call (synchronised before and after) and bytes bound;
+          the first MESH_CPU_READS reads also through the mesh path on
+          the CPU in the child process: their .ref text must be equal;
+          and the candidate selection at a 5 Mb target's width (its loop
+          as CUDA graphs) equal on the card and the CPU;
   profile stage 2 again under torch.profiler: host spans, device time
           by kernel, the card's idle share;
   pipeline the whole eight-stage pipeline through run_pipeline on CUDA,
@@ -45,11 +58,14 @@ g++, in parallel), then prints one JSON line per phase:
   device_paths the native C++ core on each kept input: every output must
           equal the device path's; per call its sizes, card ms, copies ms,
           native ms, bytes and their bound, and the same per function;
+  merge_sweep the positions merge, device against native core, on
+          prefixes of 10^5, 10^6 and 10^7 rows of the largest kept input
+          (outputs equal): where the device stops winning;
   cli     ``python -m aligngraph2_tpu_torch.cli`` as a subprocess on the
-          card with both switches at ``device``, flags only, on a small
-          dataset, and the same inputs run in-process through the plain
-          versions and the native cores: the five output files must be
-          byte-identical;
+          card with both switches at their default ``auto``, flags only,
+          on a small dataset, and the same inputs run in-process through
+          the plain versions and the native cores: the five output files
+          must be byte-identical;
   total   the script's wall so far;
   kernels one entry per CUDA kernel with its launches in the pipeline
           phase, error, times and bound.
@@ -91,6 +107,11 @@ GATE = ((GATE_B, GATE_NQ, 256, 0), (GATE_B, GATE_NQ, 256, 250),
 LONG_READ_BP = 66000           # past the 65536 bucket
 REPS = 5
 PLAIN_READS = 200
+MESH_READS = 256               # the mesh phase's reads on the card; 512
+                               # would take ~216 s at the 2.37 reads/s an
+                               # H100 gave
+MESH_CPU_READS = 32            # ... and the first of them on the CPU
+MERGE_SWEEP_ROWS = (10 ** 5, 10 ** 6, 10 ** 7)
 # the pipeline phase's dataset: bench_e2e.py's 5 Mb PacBio recipe
 PIPELINE_DATA = dict(genome_len=5_000_000, coverage=20, mean_read=9000,
                      read_err=0.13, similar_div=0.01, n_contigs=20,
@@ -121,6 +142,13 @@ DEVICE_FUNCTIONS = {
     "merge_edges_device": "aligngraph2_tpu/graph/merge_device.py:74",
     "_agg_columns": "aligngraph2_tpu/consensus/device.py:197",
     "_chain_sort": "aligngraph2_tpu/consensus/device.py:306"}
+# each function of the mesh path (parallel/sharded.py): the XLA function
+# it replaces
+MESH_FUNCTIONS = {
+    "_seed_block_candidates": "aligngraph2_tpu/parallel/sharded.py:126",
+    "_select_read_candidates": "aligngraph2_tpu/parallel/sharded.py:171",
+    "_seed_body": "aligngraph2_tpu/parallel/sharded.py:223",
+    "_extend_body": "aligngraph2_tpu/parallel/sharded.py:294"}
 
 
 def emit(obj) -> None:
@@ -369,19 +397,25 @@ def check_records(alns, qdb, tdb, limit=300):
         assert a.qstr.replace("-", "") == qs[lo:hi], a.query_name
 
 
+def stage_dataset(seed, genome_mb):
+    """The stage phase's synthetic PacBio dataset."""
+    from tests.synth import make_dataset
+    return make_dataset(seed=seed, genome_len=int(genome_mb * 1e6),
+                        coverage=20, mean_read=9000, read_err=0.13,
+                        similar_div=0.01, profile="pacbio")
+
+
 def slice_run(args, pool):
-    """Stages 2-4 on CUDA, each kernel launched; returns the future of the
-    long read's CPU half, started in ``pool`` with the plain phase."""
+    """Stages 2-4 on CUDA, each kernel launched; starts the CPU halves of
+    the long_read and mesh phases in ``pool`` with the plain phase.
+    Returns their futures and the dataset's reads and contigs."""
     from aligngraph2_tpu_torch.align.aligner import LongReadAligner
     from aligngraph2_tpu_torch.config import AlignerConfig
     from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
     from aligngraph2_tpu_torch.ops import banded_static as bs
-    from tests.synth import make_dataset
 
     t0 = time.perf_counter()
-    ds = make_dataset(seed=args.seed, genome_len=int(args.genome_mb * 1e6),
-                      coverage=20, mean_read=9000, read_err=0.13,
-                      similar_div=0.01, profile="pacbio")
+    ds = stage_dataset(args.seed, args.genome_mb)
     reads = SeqDatabase(ds["reads"])
     ctgs = SeqDatabase(ds["contigs"])
     refs = SeqDatabase(ds["similar"])
@@ -447,9 +481,10 @@ def slice_run(args, pool):
     check_records(r2r, reads, refs)
     check_records(c2r, ctgs, refs)
 
-    # the long read's CPU half runs in a child process from here on,
-    # beside host-bound work whose walls are not metrics
+    # the CPU halves of long_read and mesh run in a child process from
+    # here on, beside host-bound work whose walls are not metrics
     on_cpu = pool.submit(long_read_on_cpu, args.seed)
+    mesh_cpu = pool.submit(mesh_on_cpu, args.seed, args.genome_mb)
     # the first reads through the kernels and through the plain versions
     ids = range(min(PLAIN_READS, n_reads))
     t0 = time.perf_counter()
@@ -464,7 +499,7 @@ def slice_run(args, pool):
     if not same or not len(kern):
         raise SystemExit("kernel and plain .ref text differ")
     profile_stage(lambda: LongReadAligner(ctgs, cfg).align_reads(reads))
-    return on_cpu
+    return on_cpu, mesh_cpu, reads, ctgs
 
 
 def long_read_dbs(seed):
@@ -524,6 +559,177 @@ def long_read(args, on_cpu) -> None:
         raise SystemExit("long read: static-band launches, no alignment "
                          "or CUDA and CPU .ref text differ")
     check_records(cu, reads, target)
+
+
+def mesh_on_cpu(seed, genome_mb):
+    """The stage dataset's first MESH_CPU_READS reads through the mesh
+    path on a 1x1 mesh of the CPU, to the contigs: (.ref text, wall s).
+    Runs in a child process during the plain phase."""
+    import torch
+    from aligngraph2_tpu_torch.align.aligner import LongReadAligner
+    from aligngraph2_tpu_torch.config import AlignerConfig
+    from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
+    from aligngraph2_tpu_torch.parallel.mesh import make_mesh
+
+    # one thread: the batches are a few lanes wide, so torch's thread pool
+    # would only contend with the parent process for the cores
+    torch.set_num_threads(1)
+    ds = stage_dataset(seed, genome_mb)
+    reads = SeqDatabase(ds["reads"])
+    t0 = time.perf_counter()
+    alns = LongReadAligner(
+        SeqDatabase(ds["contigs"]), AlignerConfig(),
+        mesh=make_mesh(devices=[torch.device("cpu")])).align_reads(
+            reads, ids=range(min(MESH_CPU_READS, len(reads))))
+    return alns.to_ref_text(), time.perf_counter() - t0
+
+
+class MeshCalls:
+    """The sharded functions of the mesh path (MESH_FUNCTIONS), wrapped in
+    this process while open: per function its calls, card ms (the card
+    synchronised before and after each call) and the bytes of its tensors,
+    inputs and outputs each once; ``lanes`` counts the live lanes
+    ``_extend_body`` took.  The seeder and extender call these through
+    module attributes, which is what is replaced; no package file
+    changes."""
+
+    def __enter__(self):
+        from aligngraph2_tpu_torch.parallel import sharded
+        self._mod = sharded
+        self.stats = {n: {"calls": 0, "ms": 0.0, "bytes": 0}
+                      for n in MESH_FUNCTIONS}
+        self.lanes = 0
+        self._saved = {n: getattr(sharded, n) for n in MESH_FUNCTIONS}
+        for name, fn in self._saved.items():
+            setattr(sharded, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._mod, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            ms, out = synced_ms(fn, *args, **kw)
+            st = self.stats[name]
+            st["calls"] += 1
+            st["ms"] += ms
+            st["bytes"] += tensor_bytes(args, out)
+            if name == "_extend_body":
+                self.lanes += int((args[1] > 0).sum())
+            return out
+        return call
+
+
+def select_gate(seed) -> dict:
+    """``_select_read_candidates`` on the card against the CPU at N = 544
+    candidates a read (a 5 Mb target's 34 blocks x 2 strands x K = 8),
+    where its loop replays CUDA graphs (the 1 Mb dataset's N = 96 stays
+    under two chunks and runs eagerly); counts from a small range plant
+    ties.  All three outputs must be equal."""
+    import numpy as np
+    import torch
+    from aligngraph2_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(seed)
+    B, N = 32, 544
+    arrays = (rng.integers(0, 40, (B, N)).astype(np.int32),
+              rng.choice(np.array([-3, -2, -1, 1, 2, 3], np.int32), N),
+              rng.integers(0, 20000, (B, N)).astype(np.int32))
+    kw = dict(K=8, min_hits=4, alpha=0.5, beta=2.0, bin_w=128, prune=0.81)
+    want = sharded._select_read_candidates(
+        *(torch.from_numpy(x) for x in arrays), **kw)
+    got = sharded._select_read_candidates(
+        *(torch.from_numpy(x).cuda() for x in arrays), **kw)
+    return {"B": B, "N": N, "selected": int(want[0].sum()),
+            "equal": all(torch.equal(w, g.cpu()) for w, g in zip(want, got))}
+
+
+def mesh(reads, ctgs, mesh_cpu) -> dict:
+    """Read -> contig for the first MESH_READS reads through the mesh path
+    on a 1x1 mesh of the card; the CPU's records of the first
+    MESH_CPU_READS (the future ``mesh_cpu`` of :func:`mesh_on_cpu`) must
+    equal the card's.  Returns the per-function summary."""
+    import torch
+    from aligngraph2_tpu_torch.align.aligner import LongReadAligner
+    from aligngraph2_tpu_torch.align.records import AlignmentSet
+    from aligngraph2_tpu_torch.config import AlignerConfig
+    from aligngraph2_tpu_torch.ops import banded_static as bs
+    from aligngraph2_tpu_torch.parallel.mesh import make_mesh
+
+    n = min(MESH_READS, len(reads))
+    bs.banded_dp_static.launches = 0
+    bs.traceback_static.launches = 0
+    with MeshCalls() as mc:
+        t0 = time.perf_counter()
+        al = LongReadAligner(ctgs, AlignerConfig(), mesh=make_mesh(1))
+        al._ensure_sharded_index()
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        alns = al.align_reads(reads, ids=range(n))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    static = bs.banded_dp_static.launches + bs.traceback_static.launches
+    idx = al._block_index
+    index_bytes = sum(t.numel() * t.element_size()
+                      for field in al._dev_index for t in field.flat)
+    few = {reads.names[r] for r in range(min(MESH_CPU_READS, n))}
+    card_text = AlignmentSet([a for a in alns if a.query_name in few]
+                             ).to_ref_text()
+    cpu_text, cpu_s = mesh_cpu.result()
+    by_fn = {}
+    for name, replaces in MESH_FUNCTIONS.items():
+        st = mc.stats[name]
+        calls = max(st["calls"], 1)
+        by_fn[name] = {"replaces": replaces, "calls": st["calls"],
+                       "ms_per_call": st["ms"] / calls,
+                       "bytes_per_call": st["bytes"] / calls,
+                       "bound_ms_per_call": bytes_bound_ms(
+                           st["bytes"] / calls), "bound_by": "bytes"}
+    aligned = len({a.query_name for a in alns})
+    gate_n = select_gate(len(reads))
+    emit({"phase": "mesh", "mesh": al.mesh.shape,
+          "device": str(al.mesh.devices[0, 0]), "reads": n,
+          "read_bp": int(sum(reads.size(r) for r in range(n))),
+          "wall_s": wall, "reads_per_s": n / wall, "index_s": index_s,
+          "blocks": int((idx.block_lens > 0).sum()),
+          "blocks_padded": len(idx.block_lens), "block_len": idx.block_len,
+          "index_device_bytes": index_bytes, "lanes": mc.lanes,
+          "alignments": len(alns), "aligned_reads": aligned,
+          "static_launches": static,
+          "seeder_calls": mc.stats["_seed_body"]["calls"],
+          "seeder_ms_per_call": by_fn["_seed_body"]["ms_per_call"],
+          "extender_calls": mc.stats["_extend_body"]["calls"],
+          "extender_ms_per_call": by_fn["_extend_body"]["ms_per_call"],
+          "by_function": by_fn, "cpu_reads": len(few),
+          "cpu_ref_text_equal": card_text == cpu_text,
+          "cpu_alignments": card_text.count("\n") // 3, "cpu_s": cpu_s,
+          "select_gate": gate_n})
+    if card_text != cpu_text or not card_text:
+        raise SystemExit("mesh: the card's and the CPU's .ref text differ "
+                         "on the first reads, or no alignment")
+    if static:
+        raise SystemExit("mesh: the mesh path launched a static-band kernel")
+    if not gate_n["equal"]:
+        raise SystemExit("mesh: _select_read_candidates differs on the card "
+                         "at N = 544")
+    if aligned < 0.8 * n:
+        raise SystemExit("mesh: fewer than 80% of reads aligned")
+    check_records(alns, reads, ctgs)
+    return by_fn
+
+
+def probe() -> dict:
+    """The link probe and what ``auto`` resolves to on this card."""
+    from aligngraph2_tpu_torch.utils import devprobe
+    rates = devprobe.measure_link("cuda")
+    with switches("auto"):
+        auto = {var: devprobe.resolve_backend(var, "cuda")
+                for var in SWITCHES}
+    emit({"phase": "probe", "up_mbps": rates["up"],
+          "down_mbps": rates["down"],
+          "link_mbps": devprobe.link_bandwidth_mbps("cuda"),
+          "device_min_mbps": devprobe.DEVICE_MIN_MBPS, "auto": auto})
+    return auto
 
 
 def profile_stage(work) -> None:
@@ -805,6 +1011,42 @@ def device_paths(calls) -> dict:
     return by_fn
 
 
+def merge_sweep(calls) -> list:
+    """The positions merge on the card against the native core on
+    prefixes of the largest positions input the pipeline kept, each timed
+    on its second call; outputs must be equal."""
+    import numpy as np
+    from aligngraph2_tpu_torch.graph.ingest_native import (
+        merge_positions_native)
+    from aligngraph2_tpu_torch.graph.merge_device import (
+        merge_positions_device)
+
+    big = max((c for c in calls if c["fn"] == "merge_positions_device"),
+              key=lambda c: len(c["args"][0]))
+    node, ctg, ref, cnt, eps = big["args"][:5]
+    rows = []
+    for n in MERGE_SWEEP_ROWS:
+        if n > len(node):
+            continue
+        a = [x[:n] for x in (node, ctg, ref, cnt)]
+        nodes = int(a[0].max()) + 1
+        for _ in range(2):
+            t0 = time.perf_counter()
+            want = merge_positions_native(*a, nodes, eps)
+            native_ms = (time.perf_counter() - t0) * 1e3
+            device_ms, got = synced_ms(merge_positions_device, *a, eps,
+                                       "cuda")
+        rows.append({"rows": n, "device_ms": device_ms,
+                     "native_ms": native_ms,
+                     "native_over_device": native_ms / device_ms,
+                     "equal": all(np.array_equal(x, y)
+                                  for x, y in zip(got, want))})
+    emit({"phase": "merge_sweep", "input_rows": len(node), "sweep": rows})
+    if not all(r["equal"] for r in rows):
+        raise SystemExit("merge_sweep: device and native merges differ")
+    return rows
+
+
 def pipeline(args):
     """The whole pipeline on CUDA at 5 Mb, through run_pipeline with the
     CLI's default config and both switches at ``device``; returns each
@@ -895,10 +1137,11 @@ def pipeline(args):
     return launches, dc.calls
 
 
-def cli_run(args) -> None:
-    """The CLI as a subprocess on the card with both switches at
-    ``device``, and the same inputs in-process through the plain versions
-    and the native cores: the five outputs must be equal."""
+def cli_run(args, auto) -> None:
+    """The CLI as a subprocess on the card with both switches at their
+    default ``auto`` (``auto`` as the probe resolved it in this process),
+    and the same inputs in-process through the plain versions and the
+    native cores: the five outputs must be equal."""
     import tempfile
     from aligngraph2_tpu_torch.pipeline.driver import run_pipeline
     from tests.synth import make_dataset
@@ -912,8 +1155,8 @@ def cli_run(args) -> None:
         res = subprocess.run(
             [sys.executable, "-m", "aligngraph2_tpu_torch.cli", *argv,
              "-o", out_cli], cwd=HERE, capture_output=True, text=True,
-            timeout=600, env={**os.environ,
-                              **{var: "device" for var in SWITCHES}})
+            timeout=600, env={k: v for k, v in os.environ.items()
+                              if k not in SWITCHES})
         cli_s = time.perf_counter() - t0
         if res.returncode != 0:
             raise SystemExit(f"cli exited {res.returncode}:\n"
@@ -935,7 +1178,8 @@ def cli_run(args) -> None:
                 same[name] = f1.read() == f2.read()
         emit({"phase": "cli", "genome_bp": len(ds["genome"]),
               "reads": len(ds["reads"]), "flags": CLI_FLAGS,
-              "cli_switches": {var: "device" for var in SWITCHES},
+              "cli_switches": {var: f"auto ({val} here)"
+                               for var, val in auto.items()},
               "device": metrics["device"], "n_chains": metrics["n_chains"],
               "plain_n_chains": plain.stats["n_chains"],
               "files_equal": same, "cli_s": cli_s, "plain_s": plain_s,
@@ -970,15 +1214,19 @@ def main() -> int:
     built = build_all()
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda, **built})
+    auto = probe()
     timing = gate(args, built["regs"])
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        on_cpu = slice_run(args, pool)
+        on_cpu, mesh_cpu, reads, ctgs = slice_run(args, pool)
         long_read(args, on_cpu)
+        mesh(reads, ctgs, mesh_cpu)
+    del reads, ctgs
     launches, calls = pipeline(args)
     device_paths(calls)
+    merge_sweep(calls)
     del calls
-    cli_run(args)
+    cli_run(args, auto)
     emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     kernels = []
     for name, key, replaces in (

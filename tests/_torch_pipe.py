@@ -1,17 +1,22 @@
 """Run the JAX package's pipeline and the port's on the same inputs, each in
 a directory of its own, and compare what they wrote.
 
-Used by tests/test_torch_pipeline.py (legacy 6 kb dataset) and
-tests/test_torch_pipeline_pacbio.py (PacBio 6 kb dataset).  The JAX run
-takes its single-device aligner (``sharded_align=False``; the mesh is not
-ported) and the port runs on the CPU, where its records equal the JAX
-package's."""
+Used by tests/test_torch_pipeline.py (legacy 6 kb dataset),
+tests/test_torch_pipeline_pacbio.py (PacBio 6 kb dataset) and
+tests/test_torch_distributed.py.  The JAX run takes its single-device
+aligner (``sharded_align=False``) unless a test asks for the mesh path in
+both packages, and the port runs on the CPU, where its records equal the
+JAX package's.  At k = 12 a 6 kb dataset's solid set holds every one of
+the 4^12 codes (128 MiB), so a test removes its run directories once it
+has compared them (:func:`removed`)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import filecmp
 import os
+import shutil
 
 # tests/test_pipeline.py small_cfg's values
 SMALL = {"aligner": dict(band_width=128, min_aln_len=150, min_block_hits=3,
@@ -50,6 +55,16 @@ def small_cfg(pkg: str):
         for key, val in values.items():
             setattr(getattr(cfg, part), key, val)
     return cfg
+
+
+@contextlib.contextmanager
+def removed(*dirs):
+    """Yield, then remove ``dirs`` whatever happened."""
+    try:
+        yield
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def jax_cfg_like(cfg):

@@ -63,6 +63,6 @@ def test_device_consensus_raises(backbone_case, monkeypatch):
     monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_CONSENSUS", "device")
     assert consensus_backbone(backbone, TSet.from_ref_text(text), cfg,
                               threads=2, device="cpu") == want
-    monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_CONSENSUS", "auto")
+    monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_CONSENSUS", "gpu")
     with pytest.raises(ValueError, match="expected one of native, device"):
         consensus_backbone(backbone, TSet.from_ref_text(text), cfg)

@@ -102,6 +102,6 @@ def test_device_merge_raises(monkeypatch, merge):
     for name in tg.GRAPH_ARRAYS:
         np.testing.assert_array_equal(got["device"][1][name],
                                       got["numpy"][1][name], err_msg=name)
-    monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_MERGE", "auto")
+    monkeypatch.setenv("ALIGNGRAPH2_TPU_TORCH_MERGE", "gpu")
     with pytest.raises(ValueError, match="expected one of native, device"):
         getattr(g, merge)(*args)

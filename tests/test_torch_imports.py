@@ -28,6 +28,20 @@ md.merge_edges_device(*(np.array([1, 1]),) * 3, 2, "cpu")
 cd.window_consensus_via_device(["ACGT"], [[(1, "AGGT", "ACGT", 1)]],
                                device="cpu")
 cd.consensus_backbone_device("ACGTACGT", [], 4, 2, 2, 0, 1, device="cpu")
+# the mesh path, multi-process helpers and the link probe, once each
+import torch
+from aligngraph2_tpu_torch.align.aligner import LongReadAligner
+from aligngraph2_tpu_torch.config import AlignerConfig
+from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
+from aligngraph2_tpu_torch.parallel import distributed as dd, make_mesh
+from aligngraph2_tpu_torch.utils import devprobe
+g = "ACGTTGCAAGGCTTACGATCGATCGGATCCTAGGCTAGCTAGGATCCATGCATGCCGTA" * 20
+mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+LongReadAligner(SeqDatabase([("g", g)]), AlignerConfig(band_width=64),
+                mesh=mesh).align_reads(SeqDatabase([("r", g[100:700])]))
+dd.init_distributed()
+assert dd.gather_host_bytes(b"x") == [b"x"]
+assert devprobe.resolve_backend("ALIGNGRAPH2_TPU_TORCH_MERGE", "cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "aligngraph2_tpu" or m.startswith("aligngraph2_tpu."))
@@ -38,7 +52,8 @@ assert len(names) >= 15, names
 assert {pkg.__name__ + "." + m for m in (
     "graph.merge_device", "consensus.device", "consensus.reduced",
     "consensus.native", "utils.transfer", "utils.segment",
-    "utils.backend")} <= set(names), names
+    "utils.backend", "utils.devprobe", "parallel.mesh", "parallel.sharded",
+    "parallel.distributed")} <= set(names), names
 """
 
 

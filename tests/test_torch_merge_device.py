@@ -206,14 +206,15 @@ def test_edges_past_int32_equal_spec():
 @pytest.mark.parametrize("var", ["ALIGNGRAPH2_TPU_TORCH_MERGE",
                                  "ALIGNGRAPH2_TPU_TORCH_CONSENSUS"])
 def test_switch_takes_device_and_refuses_unknown(monkeypatch, var):
-    """Both switches default to ``native``, take ``device`` and raise on a
-    value that names no backend (there is no ``auto``)."""
+    """Both switches default to ``auto``, which is ``native`` on the CPU,
+    take ``device`` and raise on a value that names no backend."""
     from aligngraph2_tpu_torch.utils.backend import resolve_backend
     choices = ("native", "device", "numpy")
     monkeypatch.delenv(var, raising=False)
-    assert resolve_backend(var, choices) == "native"
+    monkeypatch.delenv("ALIGNGRAPH2_TPU_TORCH_LINK_MBPS", raising=False)
+    assert resolve_backend(var, choices, "cpu") == "native"
     monkeypatch.setenv(var, "device")
     assert resolve_backend(var, choices) == "device"
-    monkeypatch.setenv(var, "auto")
+    monkeypatch.setenv(var, "gpu")
     with pytest.raises(ValueError, match=var):
         resolve_backend(var, choices)

@@ -2,9 +2,9 @@
 the PacBio 6 kb dataset of tests/test_pipeline.py (indel-dominant 13%
 error, repeats, chimeras) with small_cfg's values: every file both write
 must be byte-identical (tests/_torch_pipe.py), with the merge and
-consensus switches at their defaults and at ``device``.  A file of its
-own so that ``--dist loadfile`` runs it beside
-tests/test_torch_pipeline.py."""
+consensus switches at their defaults and at ``device``; run directories
+are removed once compared.  A file of its own so that ``--dist loadfile``
+runs it beside tests/test_torch_pipeline.py."""
 
 import torch
 
@@ -21,13 +21,18 @@ def _dataset():
                         chimera=0.03)
 
 
-def test_pacbio_files_equal_jax(tmp_path):
+def _runs_equal(tmp_path):
     ds = _dataset()
-    res = {pkg: tp.run(pkg, ds, str(tmp_path / pkg))
-           for pkg in ("jax", "torch")}
-    assert res["torch"].stats["n_chains"] >= 1
-    assert tp.differing(str(tmp_path / "jax" / "out"),
-                        str(tmp_path / "torch" / "out")) == []
+    with tp.removed(tmp_path / "jax", tmp_path / "torch"):
+        res = {pkg: tp.run(pkg, ds, str(tmp_path / pkg))
+               for pkg in ("jax", "torch")}
+        assert res["torch"].stats["n_chains"] >= 1
+        assert tp.differing(str(tmp_path / "jax" / "out"),
+                            str(tmp_path / "torch" / "out")) == []
+
+
+def test_pacbio_files_equal_jax(tmp_path):
+    _runs_equal(tmp_path)
 
 
 def test_pacbio_device_switches_files_equal_jax(tmp_path, monkeypatch):
@@ -38,9 +43,4 @@ def test_pacbio_device_switches_files_equal_jax(tmp_path, monkeypatch):
                 "ALIGNGRAPH2_TPU_TORCH_MERGE",
                 "ALIGNGRAPH2_TPU_TORCH_CONSENSUS"):
         monkeypatch.setenv(var, "device")
-    ds = _dataset()
-    res = {pkg: tp.run(pkg, ds, str(tmp_path / pkg))
-           for pkg in ("jax", "torch")}
-    assert res["torch"].stats["n_chains"] >= 1
-    assert tp.differing(str(tmp_path / "jax" / "out"),
-                        str(tmp_path / "torch" / "out")) == []
+    _runs_equal(tmp_path)
