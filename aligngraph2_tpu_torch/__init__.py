@@ -9,9 +9,10 @@ Ported: everything the JAX package does.  The eight-stage pipeline
 (``pipeline/driver.py``, ``cli.py``): stage 1's solid-k-mer counter
 (``ops/kmer.py``), the seed-extend aligner of stages 2, 3, 4 and 7
 (``align/aligner.py``) with host seeding in C++ (``ops/seedextend.py``,
-``native/seedhits.cpp``), the adaptive-band DP in torch
-(``ops/banded_dp.py``) and the static-band DP and its traceback as CUDA
-kernels for Hopper (``ops/banded_static.py``, ``csrc/banded_static.cu``),
+``native/seedhits.cpp``), the static-band and adaptive-band DPs and
+their tracebacks as CUDA kernels for Hopper (``ops/banded_static.py``,
+``csrc/banded_static.cu``; ``ops/banded_dp.py``,
+``csrc/banded_adaptive.cu``), each beside its plain torch version,
 the grouping, graph and traversal of stages 5 and 6 (``pipeline/``,
 ``graph/``, ``traverse/``, C++ cores ``native/ingest.cpp`` and
 ``native/traverse.cpp``) and the host consensus of stage 8

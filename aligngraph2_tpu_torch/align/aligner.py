@@ -18,15 +18,16 @@ The band follows the device, as the JAX package's ``use_pallas`` does:
     records equal the JAX package's on the CPU byte for byte;
   * ``band="static"`` on the CPU, or ``plain=True`` on either device: the
     static band through the plain torch versions of the kernels (the
-    reference the card is held against).
+    reference the card is held against), and the long reads' adaptive
+    band through its plain versions too.
 
 Under the static band, buckets past 65536 (reads of 65,537 bp up to
 ``max_read_len``) take the adaptive band on the aligner's device, as the
 JAX package sends them to its adaptive scan (``pallas_ok`` there): the
 static pipeline is drained first, and the batch is sized as an adaptive
-one.  On a card that band replays CUDA graphs of small torch ops, 64 rows
-at a time: slower than the static band's kernels, and rare (about 5e-5 of
-PacBio reads).
+one.  On a card that band runs its own CUDA kernels
+(``csrc/banded_adaptive.cu``), or with ``plain=True`` its plain torch
+versions; such reads are rare (about 5e-5 of PacBio reads).
 
 With no CUDA device the default raises; it does not fall back to the CPU.
 A kernel that fails to build or launch raises too.  The host phases run
@@ -59,7 +60,8 @@ from torch.profiler import record_function
 
 from ..config import AlignerConfig
 from ..io.seqdb import SeqDatabase, decode_seq, revcomp_codes
-from ..ops.banded_dp import banded_align, moves_to_strings, traceback
+from ..ops.banded_dp import (banded_align, banded_align_ref,
+                             moves_to_strings, traceback, traceback_ref)
 from ..ops.banded_static import (Q_SENTINEL, banded_dp_static,
                                  banded_dp_static_ref,
                                  standard_frame_windows, traceback_static,
@@ -463,13 +465,14 @@ class LongReadAligner:
             ws_arr[b] = ws
 
         dev = self.device
-        res = banded_align(*(torch.from_numpy(x).to(dev)
-                             for x in (q, qlen, t, tlen, c0)), W=W,
-                           match=cfg.match_score,
-                           mismatch=cfg.mismatch_score, gap=cfg.gap_score,
-                           x_drop=cfg.x_drop)
-        moves, _, si, sj = traceback(res.dirs, res.centers, res.best_i,
-                                     res.best_j, max_steps=NQ + NT)
+        dp, tb = ((banded_align_ref, traceback_ref) if self.plain
+                  else (banded_align, traceback))
+        res = dp(*(torch.from_numpy(x).to(dev)
+                   for x in (q, qlen, t, tlen, c0)), W=W,
+                 match=cfg.match_score, mismatch=cfg.mismatch_score,
+                 gap=cfg.gap_score, x_drop=cfg.x_drop)
+        moves, _, si, sj = tb(res.dirs, res.centers, res.best_i, res.best_j,
+                              max_steps=NQ + NT)
         moves, centers, scores, si, sj = (
             x.cpu().numpy() for x in (moves, res.centers, res.score, si, sj))
 

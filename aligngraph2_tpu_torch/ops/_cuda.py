@@ -1,10 +1,13 @@
-"""Build and load ``csrc/banded_static.cu`` (plain C interface, ctypes).
+"""Build and load the CUDA kernels of ``csrc/`` (plain C interface, ctypes).
 
-The library is compiled with nvcc on first use into the port's ``_build/``
-directory, under a name that carries the hash of the source and the
-command, so ``python3 chip_smoke.py`` on a fresh checkout builds it.  A
-failed build raises: there is no fallback to the plain versions.  nvcc is
-taken from ``$CUDA_HOME/bin`` as PyTorch finds it.
+Two libraries: ``csrc/banded_static.cu`` (the static band, :func:`get_lib`)
+and ``csrc/banded_adaptive.cu`` (the adaptive band,
+:func:`get_adaptive_lib`).  Each is compiled with nvcc on first use into
+the port's ``_build/`` directory, under a name that carries the hash of
+the source and the command, so ``python3 chip_smoke.py`` on a fresh
+checkout builds it.  A failed build raises: there is no fallback to the
+plain versions.  nvcc is taken from ``$CUDA_HOME/bin`` as PyTorch finds
+it.
 """
 
 from __future__ import annotations
@@ -15,13 +18,16 @@ import threading
 
 from ..utils.nativebuild import build_lib
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "banded_static.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+SRC = os.path.join(CSRC, "banded_static.cu")
+ADAPTIVE_SRC = os.path.join(CSRC, "banded_adaptive.cu")
+SOURCES = (SRC, ADAPTIVE_SRC)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
-_lib = None
+_locks = {src: threading.Lock() for src in SOURCES}
+_libs: dict = {}
 
 
 def nvcc_cmd() -> list:
@@ -30,26 +36,65 @@ def nvcc_cmd() -> list:
     return [nvcc, *FLAGS]
 
 
-def get_lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed (raises on failure)."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_lib(SRC, nvcc_cmd()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.agc_dp_static.restype = ci
-            lib.agc_dp_static.argtypes = [ci, vp, vp, vp] + [ci] * 8 \
-                + [vp] * 6
-            lib.agc_tb_static.restype = ci
-            lib.agc_tb_static.argtypes = [ci, vp, vp, vp] + [ci] * 5 \
-                + [vp] * 5
+def _load(src: str, signatures: dict) -> ctypes.CDLL:
+    """The library built from ``src`` (built first if needed; raises on
+    failure), its functions given ``signatures``: name -> (argtypes)."""
+    with _locks[src]:
+        if src not in _libs:
+            lib = ctypes.CDLL(build_lib(src, nvcc_cmd()))
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             lib.agc_error_string.restype = ctypes.c_char_p
-            lib.agc_error_string.argtypes = [ci]
-            _lib = lib
-        return _lib
+            lib.agc_error_string.argtypes = [ctypes.c_int]
+            _libs[src] = lib
+        return _libs[src]
+
+
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+
+
+def get_lib() -> ctypes.CDLL:
+    """The static-band kernels (``csrc/banded_static.cu``)."""
+    return _load(SRC, {
+        "agc_dp_static": [_ci, _vp, _vp, _vp] + [_ci] * 8 + [_vp] * 6,
+        "agc_tb_static": [_ci, _vp, _vp, _vp] + [_ci] * 5 + [_vp] * 5})
+
+
+def get_adaptive_lib() -> ctypes.CDLL:
+    """The adaptive-band kernels (``csrc/banded_adaptive.cu``)."""
+    return _load(ADAPTIVE_SRC, {
+        "agc_dp_adaptive": [_ci] + [_vp] * 5 + [_ci] * 9 + [_vp] * 8,
+        "agc_tb_adaptive": [_ci] + [_vp] * 4 + [_ci] * 5 + [_vp] * 5})
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what} failed: CUDA error {code} "
                            f"({lib.agc_error_string(code).decode()})")
+
+
+def need(x, name: str, dtype, shape, device=None) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape`` (on ``device`` when given)."""
+    import torch
+    if not torch.is_tensor(x) or x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got "
+                         f"{getattr(x, 'device', type(x).__name__)}")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name} must be on {device}, got {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch_target(dev):
+    """(device index, current stream handle) of a CUDA device."""
+    import torch
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(dev).cuda_stream

@@ -1,7 +1,8 @@
-"""Adaptive banded local-alignment DP and its traceback, in torch.
+"""Adaptive banded local-alignment DP and its traceback: the plain torch
+versions and the wrappers of the CUDA kernels.
 
-Counterpart of ``aligngraph2_tpu/ops/banded_dp.py``, the path the JAX
-package takes on the CPU.  Same semantics, value for value:
+Counterpart of ``aligngraph2_tpu/ops/banded_dp.py``, which XLA compiles
+into one device loop per scan.  Same semantics, value for value:
 
   * Smith-Waterman local alignment with linear gaps, int32 scores;
   * an adaptive band of W cells whose centre drifts by at most +-1 per row
@@ -20,13 +21,26 @@ leading dimension of every tensor and rows are a Python loop.  Out-of-range
 reads reproduce JAX's gather rules (a target read before the window is a
 sentinel; a traceback index wraps when negative, then clamps).
 
-Both functions run on the device of their inputs, the CPU or a CUDA card
-(numpy inputs go to the CPU), as the JAX package runs them on its default
-backend: torch ops stand in for XLA's.  Each DP row and each traceback
-move is a few dozen small ops, so on a card both loops replay a CUDA graph
-of 64 rows or moves at a time (``_loop``), and ask whether a lane is still
-alive only between graphs.  The aligner sends this band only the rare
-reads past the 65536 bucket.
+  * :func:`banded_align` runs ``dp_adaptive_kernel`` of
+    ``csrc/banded_adaptive.cu`` on CUDA tensors and
+    :func:`banded_align_ref` on CPU tensors (numpy inputs go to the CPU).
+  * :func:`traceback` runs ``tb_adaptive_kernel`` on CUDA tensors and
+    :func:`traceback_ref` on CPU tensors.
+
+A wrapper given a CUDA tensor launches its kernel or raises; only a CPU
+tensor takes the plain version.  Each wrapper counts its launches in
+``<wrapper>.launches``.  The kernels take W in :data:`KERNEL_WIDTHS`.
+
+The plain versions run on the device of their inputs, the CPU or a CUDA
+card: torch ops stand in for XLA's.  Each DP row and each traceback move
+is a few dozen small ops, so on a card both loops replay a CUDA graph of
+64 rows or moves at a time (``_loop``), and ask whether a lane is still
+alive only between graphs; the card runs them only to hold the kernels
+against them.
+
+The band runs on every lane of the mesh path's extender
+(``parallel/sharded.py``), on the aligner's CPU path, and on the
+single-device card path for the reads past the 65536 bucket.
 """
 
 from __future__ import annotations
@@ -37,6 +51,8 @@ import numpy as np
 import torch
 
 NEG = -(1 << 28)
+# the band widths the CUDA kernels take: W/32 columns a thread, at least two
+KERNEL_WIDTHS = (64, 128, 256, 512, 1024)
 
 # direction codes
 STOP, DIAG, UP, LEFT = 0, 1, 2, 3
@@ -76,9 +92,9 @@ def maxplus_scan(M: torch.Tensor, gap: int, shifts) -> torch.Tensor:
     return H
 
 
-def banded_align(q, qlen, t, tlen, c0, *, W=256, match=2, mismatch=-4,
-                 gap=-3, x_drop=0) -> BandedResult:
-    """Batched adaptive banded local alignment.
+def banded_align_ref(q, qlen, t, tlen, c0, *, W=256, match=2, mismatch=-4,
+                     gap=-3, x_drop=0) -> BandedResult:
+    """Batched adaptive banded local alignment: the plain version.
 
     q: (B, NQ) uint8 query codes (aligned strand), qlen: (B,)
     t: (B, NT) uint8 target window codes,           tlen: (B,)
@@ -231,8 +247,8 @@ def _jax_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1).long()
 
 
-def traceback(dirs, centers, best_i, best_j, *, max_steps):
-    """Batched traceback of :func:`banded_align`.
+def traceback_ref(dirs, centers, best_i, best_j, *, max_steps):
+    """Batched traceback of :func:`banded_align`: the plain version.
 
     Returns (moves (B, max_steps) uint8 in END->START order, n_moves (B,),
     start_i (B,), start_j (B,)).  Move codes are DIAG/UP/LEFT; 0 entries
@@ -271,6 +287,118 @@ def traceback(dirs, centers, best_i, best_j, *, max_steps):
     i, j = S["i"], S["j"]
     n = (moves != 0).sum(dim=1, dtype=torch.int32)
     return moves, n, i, j
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+
+
+def need_width(W: int) -> None:
+    """Raise unless the kernels take band width ``W``."""
+    if W not in KERNEL_WIDTHS:
+        raise ValueError(f"W={W}: the adaptive-band kernels take W in "
+                         f"{KERNEL_WIDTHS}")
+
+
+def banded_align(q, qlen, t, tlen, c0, *, W=256, match=2, mismatch=-4,
+                 gap=-3, x_drop=0) -> BandedResult:
+    """Adaptive banded local alignment: the CUDA kernel when ``q`` is a
+    CUDA tensor, else the plain version (same arguments as
+    :func:`banded_align_ref`).  On the card q and t are uint8, qlen, tlen
+    and c0 int32, all on q's device, and NT a multiple of 16."""
+    if not (torch.is_tensor(q) and q.is_cuda):
+        return banded_align_ref(q, qlen, t, tlen, c0, W=W, match=match,
+                                mismatch=mismatch, gap=gap, x_drop=x_drop)
+    return dp_adaptive(q, qlen, t, tlen, c0, W=W, match=match,
+                       mismatch=mismatch, gap=gap, x_drop=x_drop)[0]
+
+
+banded_align.launches = 0
+
+
+def dp_adaptive(q, qlen, t, tlen, c0, *, W, match, mismatch, gap, x_drop):
+    """Launch ``dp_adaptive_kernel`` on CUDA tensors: (BandedResult, rows
+    each lane ran).  Raises on any input the kernel does not take."""
+    from . import _cuda
+    B, NQ = q.shape
+    NT = t.shape[1]
+    dev = q.device
+    _cuda.need(q, "q", torch.uint8, (B, NQ))
+    _cuda.need(t, "t", torch.uint8, (B, NT), dev)
+    for x, name in ((qlen, "qlen"), (tlen, "tlen"), (c0, "c0")):
+        _cuda.need(x, name, torch.int32, (B,), dev)
+    need_width(W)
+    if NQ < 1 or NT % 16 or t.data_ptr() % 16 or x_drop < 0:
+        raise ValueError(f"NQ={NQ}, NT={NT}, x_drop={x_drop}: need NQ >= 1, "
+                         "NT a multiple of 16, t 16-byte aligned, "
+                         "x_drop >= 0")
+    lib = _cuda.get_adaptive_lib()
+    score, best_i, best_j, rows, c_last = (
+        torch.empty(B, dtype=torch.int32, device=dev) for _ in range(5))
+    dirs = torch.zeros((B, NQ, W), dtype=torch.uint8, device=dev)
+    centers = torch.empty((B, NQ + 1), dtype=torch.int32, device=dev)
+    c_hi = NT if x_drop > 0 else NT + 2 * W + NQ + 4
+    index, stream = _cuda.launch_target(dev)
+    code = lib.agc_dp_adaptive(
+        index, q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
+        c0.data_ptr(), B, NQ, NT, W, c_hi, match, mismatch, gap, x_drop,
+        score.data_ptr(), best_i.data_ptr(), best_j.data_ptr(),
+        dirs.data_ptr(), centers.data_ptr(), rows.data_ptr(),
+        c_last.data_ptr(), stream)
+    _cuda.check(lib, code, "dp_adaptive_kernel launch")
+    banded_align.launches += 1
+    centers = fill_centers(centers, rows, c_last, x_drop)
+    return BandedResult(score, best_i, best_j, dirs, centers), rows
+
+
+def fill_centers(centers, rows, c_last, x_drop) -> torch.Tensor:
+    """The centres of the rows after each lane's last, as the JAX loops
+    leave them: ``c_last`` (the lane's frozen centre) up to the batch's last
+    row run, 0 after it at ``x_drop > 0``; ``c_last`` to the end at
+    ``x_drop == 0``, where the centre no longer moves past qlen + 1.  Rows
+    up to ``rows`` are kept.  Torch ops on the tensors' device, with no
+    sync."""
+    idx = torch.arange(centers.shape[1], device=centers.device)[None, :]
+    keep = torch.where(idx <= rows.max(), c_last[:, None], 0) if x_drop > 0 \
+        else c_last[:, None]
+    return torch.where(idx > rows[:, None], keep, centers)
+
+
+def traceback(dirs, centers, best_i, best_j, *, max_steps):
+    """Traceback of :func:`banded_align`: the CUDA kernel when ``dirs`` is
+    a CUDA tensor, else the plain version (see :func:`traceback_ref`).  On
+    the card dirs is uint8, centers, best_i and best_j int32."""
+    if not dirs.is_cuda:
+        return traceback_ref(dirs, centers, best_i, best_j,
+                             max_steps=max_steps)
+    from . import _cuda
+    B, NQ, W = dirs.shape
+    dev = dirs.device
+    _cuda.need(dirs, "dirs", torch.uint8, (B, NQ, W))
+    _cuda.need(centers, "centers", torch.int32, (B, NQ + 1), dev)
+    _cuda.need(best_i, "best_i", torch.int32, (B,), dev)
+    _cuda.need(best_j, "best_j", torch.int32, (B,), dev)
+    need_width(W)
+    if max_steps <= 0 or NQ < 1 or dirs.data_ptr() % 16:
+        raise ValueError(f"max_steps={max_steps}, NQ={NQ}: need both "
+                         "positive and dirs 16-byte aligned")
+    lib = _cuda.get_adaptive_lib()
+    # the kernel stores moves as aligned 32-bit words: pad each row to 16
+    stride = -(-max_steps // 16) * 16
+    moves = torch.zeros((B, stride), dtype=torch.uint8, device=dev)
+    n, si, sj = (torch.empty(B, dtype=torch.int32, device=dev)
+                 for _ in range(3))
+    index, stream = _cuda.launch_target(dev)
+    code = lib.agc_tb_adaptive(
+        index, dirs.data_ptr(), centers.data_ptr(), best_i.data_ptr(),
+        best_j.data_ptr(), B, NQ, W, max_steps, stride, moves.data_ptr(),
+        n.data_ptr(), si.data_ptr(), sj.data_ptr(), stream)
+    _cuda.check(lib, code, "tb_adaptive_kernel launch")
+    traceback.launches += 1
+    return moves[:, :max_steps], n, si, sj
+
+
+traceback.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -166,18 +166,6 @@ def traceback_static_ref(words, best_i, best_j, *, max_steps):
     return moves, n, i, j
 
 
-def _need(x: torch.Tensor, name: str, dtype, shape) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _need_width(W: int) -> None:
     if W not in KERNEL_WIDTHS:
         raise ValueError(f"W={W}: the kernels take W in {KERNEL_WIDTHS}")
@@ -196,9 +184,9 @@ def banded_dp_static(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
     B, NQ = q.shape
     if qlen is None:
         qlen = torch.full((B,), NQ, dtype=torch.int32, device=q.device)
-    _need(q, "q", torch.uint8, (B, NQ))
-    _need(t, "t", torch.uint8, (B, NQ + W))
-    _need(qlen, "qlen", torch.int32, (B,))
+    _cuda.need(q, "q", torch.uint8, (B, NQ))
+    _cuda.need(t, "t", torch.uint8, (B, NQ + W))
+    _cuda.need(qlen, "qlen", torch.int32, (B,))
     _need_width(W)
     if NQ % 16 or K % 16 or K <= 0 or NQ >= 1 << 20 or x_drop < 0:
         raise ValueError(f"NQ={NQ}, K={K}, x_drop={x_drop}: need NQ and K "
@@ -207,11 +195,10 @@ def banded_dp_static(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
     dev = q.device
     out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4)]
     words = torch.empty((B, NQ // 16, W), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    index, stream = _cuda.launch_target(dev)
     code = lib.agc_dp_static(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        q.data_ptr(), t.data_ptr(), qlen.data_ptr(), B, NQ, W, K, match,
-        mismatch, gap, x_drop, *(o.data_ptr() for o in out),
+        index, q.data_ptr(), t.data_ptr(), qlen.data_ptr(), B, NQ, W, K,
+        match, mismatch, gap, x_drop, *(o.data_ptr() for o in out),
         words.data_ptr(), stream)
     _cuda.check(lib, code, "dp_static_kernel launch")
     banded_dp_static.launches += 1
@@ -230,9 +217,9 @@ def traceback_static(words, best_i, best_j, *, max_steps):
                                     max_steps=max_steps)
     from . import _cuda
     B, NW, W = words.shape
-    _need(words, "words", torch.int32, (B, NW, W))
-    _need(best_i, "best_i", torch.int32, (B,))
-    _need(best_j, "best_j", torch.int32, (B,))
+    _cuda.need(words, "words", torch.int32, (B, NW, W))
+    _cuda.need(best_i, "best_i", torch.int32, (B,))
+    _cuda.need(best_j, "best_j", torch.int32, (B,))
     _need_width(W)
     if max_steps <= 0:
         raise ValueError(f"max_steps={max_steps} must be positive")
@@ -243,12 +230,11 @@ def traceback_static(words, best_i, best_j, *, max_steps):
     moves = torch.zeros((B, stride), dtype=torch.uint8, device=dev)
     n, si, sj = (torch.empty(B, dtype=torch.int32, device=dev)
                  for _ in range(3))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    index, stream = _cuda.launch_target(dev)
     code = lib.agc_tb_static(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        words.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), B, NW, W,
-        max_steps, stride, moves.data_ptr(), n.data_ptr(), si.data_ptr(),
-        sj.data_ptr(), stream)
+        index, words.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), B,
+        NW, W, max_steps, stride, moves.data_ptr(), n.data_ptr(),
+        si.data_ptr(), sj.data_ptr(), stream)
     _cuda.check(lib, code, "tb_static_kernel launch")
     traceback_static.launches += 1
     return moves[:, :max_steps], n, si, sj

@@ -20,8 +20,9 @@ seeding and the static band):
   3. the host compacts the (read, candidate) table to live lanes only and
      gathers each lane's target window (``align/aligner.py``);
   4. EXTEND: the adaptive banded DP and its traceback
-     (``ops/banded_dp.py``) on the live lanes, split over every device
-     of the mesh (``_extend_body``).
+     (``ops/banded_dp.py``: CUDA kernels on a card, the plain torch
+     versions on the CPU) on the live lanes, split over every device of
+     the mesh (``_extend_body``).
 
 The JAX functions are XLA, not Pallas, so here they are torch ops on each
 shard's device, value for value: int32 arithmetic that wraps where JAX's

@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--genome-mb 1]
 
-Builds the kernels and the five host cores from this checkout (nvcc and
-g++, in parallel), then prints one JSON line per phase:
+Builds the kernels (two CUDA sources) and the five host cores from this
+checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
 
   card    the card, the build seconds and ptxas' register report; any
           kernel or host core that fails to build fails the run;
@@ -19,6 +19,14 @@ g++, in parallel), then prints one JSON line per phase:
           start, all exact; the traceback also on random direction words,
           whose walks hit both band edges; kernel times, plain times,
           bounds and registers;
+  adaptive_gate the adaptive band's two kernels against their plain
+          torch versions on the card (B=32, NQ=8192, W=256 at x_drop 250
+          and 0; B=8, NQ=32768; W=64 and W=1024 at B=16, NQ=4096), on
+          lanes with indel drift, clustered x_drop deaths, short reads and
+          windows and c0 at both clips: score, best cell, every row of
+          dirs and centers, moves, move count and start (also with
+          max_steps cutting walks), all exact; kernel and plain times,
+          bounds and registers per shape;
   stage   stages 2, 3 (with the seed rescue) and 4 of the pipeline on a
           synthetic PacBio dataset, on CUDA at full width, with walls,
           reads/s, DP cells and alignments; launch counts are zeroed before
@@ -27,19 +35,21 @@ g++, in parallel), then prints one JSON line per phase:
           their .ref text must equal the kernels';
   long_read one read just past the 65536 bucket through the aligner on
           CUDA, where it takes the adaptive band as in the JAX package
-          (no static-band launch), and on the CPU in a child process
+          (each adaptive kernel launched, no static-band launch, no plain
+          version on the card), and on the CPU in a child process
           started with the plain phase: the .ref text must be equal;
           both walls;
-  mesh    read -> contig of the stage phase's dataset for its first
-          MESH_READS reads through the mesh path (parallel/) on a 1x1
-          mesh of the card: block-sharded device seeding and the adaptive
-          band, no static-band launch; wall, reads/s, lanes, blocks, the
-          device index's bytes, and per sharded function its calls, card
-          ms per call (synchronised before and after) and bytes bound;
-          the first MESH_CPU_READS reads also through the mesh path on
-          the CPU in the child process: their .ref text must be equal;
-          and the candidate selection at a 5 Mb target's width (its loop
-          as CUDA graphs) equal on the card and the CPU;
+  mesh    read -> contig of every read of the stage phase's dataset
+          through the mesh path (parallel/) on a 1x1 mesh of the card:
+          block-sharded device seeding and the adaptive band's kernels
+          (each launched; no static-band launch, no plain version on the
+          card); wall, reads/s, lanes, blocks, the device index's bytes,
+          and per sharded function its calls, card ms per call
+          (synchronised before and after) and bytes bound; the first
+          MESH_CPU_READS reads also through the mesh path on the CPU in a
+          second child process: their .ref text must be equal; and the
+          candidate selection at a 5 Mb target's width (its loop as CUDA
+          graphs) equal on the card and the CPU;
   profile stage 2 again under torch.profiler: host spans, device time
           by kernel, the card's idle share;
   pipeline the whole eight-stage pipeline through run_pipeline on CUDA,
@@ -67,8 +77,9 @@ g++, in parallel), then prints one JSON line per phase:
           the plain versions and the native cores: the five output files
           must be byte-identical;
   total   the script's wall so far;
-  kernels one entry per CUDA kernel with its launches in the pipeline
-          phase, error, times and bound.
+  kernels one entry per CUDA kernel with its launches (the static
+          band's in the pipeline phase, the adaptive band's in the mesh
+          and long_read phases), error, times and bound.
 
 then the card's name and power limit as nvidia-smi prints them and, last,
 {"ok": true, "device": {...}}.  Any failure exits nonzero before that
@@ -104,13 +115,24 @@ GATE = ((GATE_B, GATE_NQ, 256, 0), (GATE_B, GATE_NQ, 256, 250),
         (GATE_B, GATE_NQ, 512, 0), (GATE_B, GATE_NQ, 512, 250),
         (384, 16384, 256, 250),   # the aligner's batch for the 16384 bucket
         (256, 4096, 1024, 250))   # the widest band the kernels take
+# (B, NQ, W, x_drop) of the adaptive gate, NT = NQ + 2W: the mesh
+# extender's lanes at the 8192 and 32768 buckets (the kernels line reads
+# the first), the first at x_drop 0, and the narrowest and widest bands
+ADAPTIVE_GATE = ((32, 8192, 256, 250), (8, 32768, 256, 250),
+                 (32, 8192, 256, 0), (16, 4096, 64, 250),
+                 (16, 4096, 1024, 250))
+# one DP row's dependent chain on the card, a model: ten warp-wide steps
+# (two reductions, the neighbour and query shuffles, five scan shuffles
+# and the carry) of ~30 cycles, and three dependent int32 operations a
+# column of the thread (prefix, fix-up, mask) of ~4 cycles; one traceback
+# step: a shared-memory load and ~6 dependent operations
+SM_CLOCK_HZ = 1.98e9
+TB_STEP_CHAIN_CYCLES = 60
 LONG_READ_BP = 66000           # past the 65536 bucket
 REPS = 5
 PLAIN_READS = 200
-MESH_READS = 256               # the mesh phase's reads on the card; 512
-                               # would take ~216 s at the 2.37 reads/s an
-                               # H100 gave
-MESH_CPU_READS = 32            # ... and the first of them on the CPU
+MESH_CPU_READS = 32            # the mesh phase's first reads, also on
+                               # the CPU (the card takes all of them)
 MERGE_SWEEP_ROWS = (10 ** 5, 10 ** 6, 10 ** 7)
 # the pipeline phase's dataset: bench_e2e.py's 5 Mb PacBio recipe
 PIPELINE_DATA = dict(genome_len=5_000_000, coverage=20, mean_read=9000,
@@ -181,6 +203,7 @@ def build_all() -> dict:
         return time.perf_counter() - t0
 
     jobs = {"banded_static.cu": _cuda.get_lib,
+            "banded_adaptive.cu": _cuda.get_adaptive_lib,
             "fastio.cpp": io_native.get_lib,
             "seedhits.cpp": ops_native.get_lib,
             "ingest.cpp": ingest_native.get_lib,
@@ -189,19 +212,22 @@ def build_all() -> dict:
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in jobs.items()}
         secs = {k: round(f.result(), 3) for k, f in futs.items()}
-    with open(lib_path(_cuda.SRC, _cuda.nvcc_cmd()) + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln
-                 or "Compiling entry" in ln or "spill" in ln]
+    ptxas = []
+    for src in _cuda.SOURCES:
+        with open(lib_path(src, _cuda.nvcc_cmd()) + ".log") as f:
+            ptxas += [ln.strip() for ln in f if "registers" in ln
+                      or "Compiling entry" in ln or "spill" in ln]
     return {"build_s": secs, "ptxas": ptxas, "regs": ptxas_regs(ptxas)}
 
 
 def ptxas_regs(ptxas) -> dict:
     """{kernel: registers a thread} from ptxas' report, kernels named as
-    dp_static_kernel<W> and tb_static_kernel<slots>."""
+    dp_static_kernel<W>, tb_static_kernel<slots>, dp_adaptive_kernel<W>
+    and tb_adaptive_kernel<slots>."""
     regs, name = {}, None
     for ln in ptxas:
-        m = re.search(r"(dp_static_kernel|tb_static_kernel)I((?:L[ib]\d+E)+)",
-                      ln)
+        m = re.search(r"((?:dp|tb)_(?:static|adaptive)_kernel)"
+                      r"I((?:L[ib]\d+E)+)", ln)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             name = f"{m.group(1)}<{args}>"
@@ -230,6 +256,81 @@ def planted_lanes(rng, B, NQ, W):
             piece[n // 2:] = rng.integers(0, 4, n - n // 2)
         q[b, :n] = piece
     return q, t, qlen
+
+
+def drifted_read(rng, t, start, n, p_sub, p_ins, p_del):
+    """n query bases read off target ``t`` from position ``start``, with
+    substitutions, insertions (a random base, the diagonal falls by one)
+    and deletions (a target base skipped, the diagonal rises by one); past
+    either end of ``t`` the bases are random."""
+    import numpy as np
+    kind = rng.choice(3, size=n + n // 2, p=[p_ins, p_del, 1 - p_ins - p_del])
+    noise = rng.integers(0, 4, kind.size)
+    sub = rng.random(kind.size) < p_sub
+    out = np.empty(n, np.uint8)
+    x, k = start, 0
+    for e in range(kind.size):
+        if k == n:
+            break
+        if kind[e] == 1:
+            x += 1
+            continue
+        if kind[e] == 0 or sub[e] or not 0 <= x < len(t):
+            out[k] = noise[e]
+        else:
+            out[k] = t[x]
+        x += kind[e] == 2
+        k += 1
+    out[k:] = noise[:n - k]
+    return out
+
+
+def adaptive_lanes(rng, B, NQ, W):
+    """Lanes for the adaptive band, NT = NQ + 2W, eight kinds by b mod 8:
+    reads whose indel drift carries the best diagonal 3W/4 (at most NQ/4)
+    above (0) or below (1) c0; a short read in a short window (2); reads
+    that turn random at rows clustered within a few dozen rows (3, 4), so
+    x_drop stops them at different rows of one 64-row chunk; c0 near -W
+    (5) and near NT (6), where the band reads sentinels past both ends and
+    hits both clips; a random read (7).  Returns (q, qlen, t, tlen, c0), with
+    zero padding past qlen and tlen, as the aligner pads."""
+    import numpy as np
+    NT = NQ + 2 * W
+    q = np.zeros((B, NQ), np.uint8)
+    t = rng.integers(0, 4, (B, NT)).astype(np.uint8)
+    qlen = np.full(B, NQ, np.int32)
+    tlen = np.full(B, NT, np.int32)
+    c0 = np.full(B, W, np.int32)
+    slope = min(0.75 * W / NQ, 0.25)
+    for b in range(B):
+        kind, rank = b % 8, b // 8
+        if kind == 0:
+            read = drifted_read(rng, t[b], W, NQ, 0.05, 0.005,
+                                0.005 + slope)
+        elif kind == 1:
+            c0[b] = W + W // 2
+            read = drifted_read(rng, t[b], c0[b], NQ, 0.05, 0.005 + slope,
+                                0.005)
+        elif kind == 2:
+            qlen[b] = NQ // 2 + int(rng.integers(0, NQ // 4))
+            tlen[b] = W + qlen[b] // 2
+            t[b, tlen[b]:] = 0
+            read = drifted_read(rng, t[b], W, NQ, 0.05, 0.01, 0.01)
+        elif kind in (3, 4):
+            read = drifted_read(rng, t[b], W, NQ, 0.05, 0.01, 0.01)
+            turn = NQ // (8 if kind == 3 else 2) + 7 * rank
+            read[turn:] = rng.integers(0, 4, NQ - turn)
+        elif kind == 5:
+            c0[b] = -W + int(rng.integers(-8, 9))
+            read = drifted_read(rng, t[b], c0[b], NQ, 0.05, 0.01, 0.01)
+        elif kind == 6:
+            c0[b] = NT + int(rng.integers(-12, 9))
+            read = drifted_read(rng, t[b], c0[b] - NQ // 64, NQ, 0.05,
+                                0.01, 0.01)
+        else:
+            read = rng.integers(0, 4, NQ).astype(np.uint8)
+        q[b, :qlen[b]] = read[:qlen[b]]
+    return q, qlen, t, tlen, c0
 
 
 def cuda_ms(fn, reps):
@@ -384,6 +485,163 @@ def gate(args, regs) -> dict:
     return timing
 
 
+def adaptive_bounds(rows, B, NQ, W, steps, max_steps):
+    """Least times of the adaptive band's kernels on these inputs: (DP
+    bound ms, its kind, DP latency ms, traceback bound ms, its kind,
+    traceback latency ms).  DP: the rows each lane ran, W cells a row, at
+    DP_OPS_PER_CELL against the int32 rate; bytes: q and the band's t read
+    for those rows, their direction bytes and every centre written,
+    per-lane scalars.  Traceback: TB_OPS_PER_STEP a move; a direction byte
+    and a centre read a move, the dense moves written, per-lane scalars.
+    Latency: the longest lane's rows (moves) times one row's (move's)
+    dependent chain."""
+    rows_all = int(rows.sum())
+    cells = rows_all * W
+    dp_bytes = 2 * rows_all + B * W + cells + B * (NQ + 1) * 4 + B * 4 * 7
+    dp_ops_ms = cells * DP_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    dp_bytes_ms = dp_bytes / HBM_BYTES_PER_S * 1e3
+    row_chain = 10 * 30 + 3 * 4 * (W // 32)
+    dp_lat_ms = int(rows.max()) * row_chain / SM_CLOCK_HZ * 1e3
+    n_steps = int(steps.sum())
+    tb_bytes = 5 * n_steps + B * max_steps + B * 4 * 7
+    tb_ops_ms = n_steps * TB_OPS_PER_STEP / INT32_OPS_PER_S * 1e3
+    tb_bytes_ms = tb_bytes / HBM_BYTES_PER_S * 1e3
+    tb_lat_ms = int(steps.max()) * TB_STEP_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+    return (max(dp_ops_ms, dp_bytes_ms),
+            "operations" if dp_ops_ms >= dp_bytes_ms else "bytes", dp_lat_ms,
+            max(tb_ops_ms, tb_bytes_ms),
+            "operations" if tb_ops_ms >= tb_bytes_ms else "bytes", tb_lat_ms)
+
+
+def adaptive_gate(args, regs) -> dict:
+    """The adaptive band's kernels against their plain versions on the
+    card, on adaptive_lanes at each ADAPTIVE_GATE shape: score, best cell,
+    every row of dirs and centers, and the traceback's moves, count and
+    start at max_steps = NQ + NT and at NQ/2 (which cuts the longer
+    walks), all exact.  Prints kernel and plain ms, bounds and registers
+    per shape; returns the timings at the first shape."""
+    import numpy as np
+    import torch
+    from aligngraph2_tpu_torch.ops import banded_dp as bd
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed + 2)
+    err = {"dp": 0, "tb": 0}
+    timing = {}
+    for B, NQ, W, x_drop in ADAPTIVE_GATE:
+        NT = NQ + 2 * W
+        lanes = tuple(torch.from_numpy(x).to(dev)
+                      for x in adaptive_lanes(rng, B, NQ, W))
+        kw = dict(W=W, x_drop=x_drop)
+        bad = []
+
+        def differ(key, name, a, r):
+            d = int((a.int() - r.int()).abs().max()) if a.numel() else 0
+            err[key] = max(err[key], d)
+            if d:
+                bad.append(name)
+
+        plain_dp_ms, ref = once_ms(lambda: bd.banded_align_ref(*lanes, **kw))
+        res = bd.banded_align(*lanes, **kw)
+        for name in bd.BandedResult._fields:
+            differ("dp", name, getattr(res, name), getattr(ref, name))
+        walks = {}
+        for max_steps in (NQ + NT, NQ // 2):
+            ms, tbr = once_ms(lambda: bd.traceback_ref(
+                ref.dirs, ref.centers, ref.best_i, ref.best_j,
+                max_steps=max_steps))
+            tb = bd.traceback(res.dirs, res.centers, res.best_i, res.best_j,
+                              max_steps=max_steps)
+            for name, a, r in zip(("moves", "n", "si", "sj"), tb, tbr):
+                differ("tb", f"{name}@{max_steps}", a, r)
+            walks[max_steps] = (tb, ms)
+        tb, plain_tb_ms = walks[NQ + NT]
+        _, rows = bd.dp_adaptive(*lanes, match=2, mismatch=-4, gap=-3, **kw)
+        dp_ms = cuda_ms(lambda: bd.banded_align(*lanes, **kw), REPS)
+        tb_ms = cuda_ms(lambda: bd.traceback(
+            res.dirs, res.centers, res.best_i, res.best_j,
+            max_steps=NQ + NT), REPS)
+        dp_b, dp_by, dp_lat, tb_b, tb_by, tb_lat = adaptive_bounds(
+            rows, B, NQ, W, tb[1], NQ + NT)
+        # how far the band's centre moved from row 1 to the last row run
+        # on the lanes with planted drift (kinds 0 and 1): past W/2
+        drift = (torch.arange(B, device=dev) % 8) < 2
+        moved = (ref.centers.gather(1, rows[:, None].long())
+                 - ref.centers[:, 1:2]).abs()[drift]
+        emit({"phase": "adaptive_gate", "B": B, "NQ": NQ, "NT": NT, "W": W,
+              "x_drop": x_drop, "exact": not bad, "mismatch": bad,
+              "rows_run": int(rows.sum()), "longest_lane_rows":
+              int(rows.max()), "lanes_stopped_early": int((rows < NQ).sum()),
+              "planted_drift_max": int(moved.max()),
+              "walks_cut_at_nq_half": int((walks[NQ // 2][0][1]
+                                           == NQ // 2).sum()),
+              "dp_ms": dp_ms, "dp_plain_ms": plain_dp_ms,
+              "dp_bound_ms": dp_b, "dp_bound_by": dp_by,
+              "dp_latency_bound_ms": dp_lat,
+              "tb_ms": tb_ms, "tb_plain_ms": plain_tb_ms,
+              "tb_bound_ms": tb_b, "tb_bound_by": tb_by,
+              "tb_latency_bound_ms": tb_lat, "tb_moves": int(tb[1].sum()),
+              "regs": {k: v for k, v in regs.items()
+                       if k == f"dp_adaptive_kernel<{W}>"
+                       or k.startswith("tb_adaptive_kernel")}})
+        if bad:
+            raise SystemExit(f"adaptive_gate failed at B={B} NQ={NQ} W={W} "
+                             f"x_drop={x_drop}: {bad}")
+        if (B, NQ, W, x_drop) == ADAPTIVE_GATE[0]:
+            timing = dict(dp=(dp_ms, plain_dp_ms, dp_b, dp_by),
+                          tb=(tb_ms, plain_tb_ms, tb_b, tb_by))
+        del res, ref, tb, walks, lanes
+    timing["err"] = err
+    return timing
+
+
+class RefCalls:
+    """Counts the calls of the adaptive band's plain versions on CUDA
+    tensors while open: the main path must take the kernels.  The
+    package's modules call them through module attributes, which is what
+    is replaced; no package file changes."""
+
+    NAMES = ("banded_align_ref", "traceback_ref")
+
+    def __enter__(self):
+        import torch
+        from aligngraph2_tpu_torch.align import aligner
+        from aligngraph2_tpu_torch.ops import banded_dp
+        self.cuda_calls = 0
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod in (banded_dp, aligner) for name in self.NAMES]
+
+        def wrap(fn):
+            def call(x, *args, **kw):
+                if torch.is_tensor(x) and x.is_cuda:
+                    self.cuda_calls += 1
+                return fn(x, *args, **kw)
+            return call
+
+        for mod, name, fn in self._saved:
+            setattr(mod, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def adaptive_launches() -> dict:
+    from aligngraph2_tpu_torch.ops import banded_dp as bd
+    return {"banded_align": bd.banded_align.launches,
+            "traceback": bd.traceback.launches}
+
+
+def zero_launches() -> None:
+    """Every kernel's launch count set to 0."""
+    from aligngraph2_tpu_torch.ops import banded_dp as bd
+    from aligngraph2_tpu_torch.ops import banded_static as bs
+    for fn in (bs.banded_dp_static, bs.traceback_static, bd.banded_align,
+               bd.traceback):
+        fn.launches = 0
+
+
 def check_records(alns, qdb, tdb, limit=300):
     """Gapped strings spell the claimed intervals, on both strands."""
     for a in list(alns)[:limit]:
@@ -530,35 +788,44 @@ def long_read_on_cpu(seed):
     return cpu.to_ref_text(), time.perf_counter() - t0
 
 
-def long_read(args, on_cpu) -> None:
+def long_read(args, on_cpu) -> dict:
     """The long read through the aligner on CUDA.  It must take the
-    adaptive band (no static-band launch), as the JAX package sends such
-    buckets to its adaptive scan; the .ref text must equal the CPU's, from
-    the future ``on_cpu`` of :func:`long_read_on_cpu`."""
+    adaptive band's kernels (each launched, no static-band launch, no
+    plain version on the card), as the JAX package sends such buckets to
+    its adaptive scan; the .ref text must equal the CPU's, from the future
+    ``on_cpu`` of :func:`long_read_on_cpu`.  Returns the adaptive kernels'
+    launches."""
     import torch
     from aligngraph2_tpu_torch.align.aligner import LongReadAligner
     from aligngraph2_tpu_torch.config import AlignerConfig
     from aligngraph2_tpu_torch.ops import banded_static as bs
 
     reads, target = long_read_dbs(args.seed)
-    bs.banded_dp_static.launches = 0
-    bs.traceback_static.launches = 0
-    t0 = time.perf_counter()
-    cu = LongReadAligner(target, AlignerConfig()).align_reads(reads)
-    torch.cuda.synchronize()
-    cuda_s = time.perf_counter() - t0
+    zero_launches()
+    with RefCalls() as rc:
+        t0 = time.perf_counter()
+        cu = LongReadAligner(target, AlignerConfig()).align_reads(reads)
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+    launches = adaptive_launches()
     cpu_text, cpu_s = on_cpu.result()
     static = bs.banded_dp_static.launches + bs.traceback_static.launches
     same = cu.to_ref_text() == cpu_text
     emit({"phase": "long_read", "read_bp": int(reads.lengths[0]),
           "alignments": len(cu),
           "aligned_bp": max((a.qe - a.qb for a in cu), default=0),
-          "static_launches": static, "ref_text_equal": same,
+          "static_launches": static, "adaptive_launches": launches,
+          "plain_calls_on_card": rc.cuda_calls, "ref_text_equal": same,
           "cuda_s": cuda_s, "cpu_s": cpu_s})
     if static or not same or not len(cu):
         raise SystemExit("long read: static-band launches, no alignment "
                          "or CUDA and CPU .ref text differ")
+    if not all(launches.values()) or rc.cuda_calls:
+        raise SystemExit(f"long read: an adaptive kernel never ran "
+                         f"({launches}) or a plain version ran on the card "
+                         f"({rc.cuda_calls} calls)")
     check_records(cu, reads, target)
+    return launches
 
 
 def mesh_on_cpu(seed, genome_mb):
@@ -645,10 +912,12 @@ def select_gate(seed) -> dict:
 
 
 def mesh(reads, ctgs, mesh_cpu) -> dict:
-    """Read -> contig for the first MESH_READS reads through the mesh path
-    on a 1x1 mesh of the card; the CPU's records of the first
-    MESH_CPU_READS (the future ``mesh_cpu`` of :func:`mesh_on_cpu`) must
-    equal the card's.  Returns the per-function summary."""
+    """Read -> contig for every read of the stage dataset through the mesh
+    path on a 1x1 mesh of the card, which must launch each adaptive
+    kernel, no static-band kernel and no plain version on the card; the
+    CPU's records of the first MESH_CPU_READS (the future ``mesh_cpu`` of
+    :func:`mesh_on_cpu`) must equal the card's.  Returns the adaptive
+    kernels' launches."""
     import torch
     from aligngraph2_tpu_torch.align.aligner import LongReadAligner
     from aligngraph2_tpu_torch.align.records import AlignmentSet
@@ -656,10 +925,9 @@ def mesh(reads, ctgs, mesh_cpu) -> dict:
     from aligngraph2_tpu_torch.ops import banded_static as bs
     from aligngraph2_tpu_torch.parallel.mesh import make_mesh
 
-    n = min(MESH_READS, len(reads))
-    bs.banded_dp_static.launches = 0
-    bs.traceback_static.launches = 0
-    with MeshCalls() as mc:
+    n = len(reads)
+    zero_launches()
+    with MeshCalls() as mc, RefCalls() as rc:
         t0 = time.perf_counter()
         al = LongReadAligner(ctgs, AlignerConfig(), mesh=make_mesh(1))
         al._ensure_sharded_index()
@@ -668,6 +936,7 @@ def mesh(reads, ctgs, mesh_cpu) -> dict:
         alns = al.align_reads(reads, ids=range(n))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launches = adaptive_launches()
     static = bs.banded_dp_static.launches + bs.traceback_static.launches
     idx = al._block_index
     index_bytes = sum(t.numel() * t.element_size()
@@ -695,7 +964,8 @@ def mesh(reads, ctgs, mesh_cpu) -> dict:
           "blocks_padded": len(idx.block_lens), "block_len": idx.block_len,
           "index_device_bytes": index_bytes, "lanes": mc.lanes,
           "alignments": len(alns), "aligned_reads": aligned,
-          "static_launches": static,
+          "static_launches": static, "adaptive_launches": launches,
+          "plain_calls_on_card": rc.cuda_calls,
           "seeder_calls": mc.stats["_seed_body"]["calls"],
           "seeder_ms_per_call": by_fn["_seed_body"]["ms_per_call"],
           "extender_calls": mc.stats["_extend_body"]["calls"],
@@ -709,13 +979,17 @@ def mesh(reads, ctgs, mesh_cpu) -> dict:
                          "on the first reads, or no alignment")
     if static:
         raise SystemExit("mesh: the mesh path launched a static-band kernel")
+    if not all(launches.values()) or rc.cuda_calls:
+        raise SystemExit(f"mesh: an adaptive kernel never ran ({launches}) "
+                         f"or a plain version ran on the card "
+                         f"({rc.cuda_calls} calls)")
     if not gate_n["equal"]:
         raise SystemExit("mesh: _select_read_candidates differs on the card "
                          "at N = 544")
     if aligned < 0.8 * n:
         raise SystemExit("mesh: fewer than 80% of reads aligned")
     check_records(alns, reads, ctgs)
-    return by_fn
+    return launches
 
 
 def probe() -> dict:
@@ -1216,11 +1490,13 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda, **built})
     auto = probe()
     timing = gate(args, built["regs"])
+    a_timing = adaptive_gate(args, built["regs"])
+    # the CPU halves of long_read and mesh run side by side
     with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
         on_cpu, mesh_cpu, reads, ctgs = slice_run(args, pool)
-        long_read(args, on_cpu)
-        mesh(reads, ctgs, mesh_cpu)
+        a_launches = {"long_read": long_read(args, on_cpu),
+                      "mesh": mesh(reads, ctgs, mesh_cpu)}
     del reads, ctgs
     launches, calls = pipeline(args)
     device_paths(calls)
@@ -1240,6 +1516,21 @@ def main() -> int:
             "source": "aligngraph2_tpu_torch/csrc/banded_static.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": float(timing["err"][key]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+    # the adaptive band's: launches on the paths that run it, the mesh
+    # extender and the long read; times at the gate's mesh shape
+    for name, key, replaces in (
+            ("banded_align", "dp", "aligngraph2_tpu/ops/banded_dp.py:106"),
+            ("traceback", "tb", "aligngraph2_tpu/ops/banded_dp.py:244")):
+        ms, plain_ms, bound, by = a_timing[key]
+        by_phase = {ph: n[name] for ph, n in a_launches.items()}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "aligngraph2_tpu_torch/csrc/banded_adaptive.cu",
+            "replaces": replaces, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": float(a_timing["err"][key]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None})
     emit({"kernels": kernels})

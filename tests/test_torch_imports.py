@@ -53,7 +53,7 @@ assert {pkg.__name__ + "." + m for m in (
     "graph.merge_device", "consensus.device", "consensus.reduced",
     "consensus.native", "utils.transfer", "utils.segment",
     "utils.backend", "utils.devprobe", "parallel.mesh", "parallel.sharded",
-    "parallel.distributed")} <= set(names), names
+    "parallel.distributed", "ops.banded_dp", "ops._cuda")} <= set(names), names
 """
 
 
