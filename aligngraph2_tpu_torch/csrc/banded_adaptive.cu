@@ -35,33 +35,48 @@
 // later centres (frozen up to the batch's last live row at x_drop > 0,
 // zero after it, as the JAX while_loop leaves them) and zeroes dirs first.
 //
-// Design: one warp per lane, kDpLanes lanes per block; thread l owns the
-// C = W/32 contiguous columns [lC, lC + C) and keeps their H in registers.
-// The drift is read off the previous row's maximum and first argmax, one
-// __reduce_max_sync and one __reduce_min_sync a row (needed anyway for the
-// best cell).  The shifted predecessors come from the thread's own H and
-// three shuffles (the left neighbour's last column, the right neighbour's
-// first two), selected by the warp-uniform dc.  The gap chain is a serial
-// max-plus prefix over the thread's C columns, a 5-step shuffle scan of
-// the thread totals and a fix-up, as in dp_static_kernel: max-plus over
-// exact integers is associative, so it equals the Kogge-Stone scan over
-// shifts 1 .. W/2, which reach every distance below W.  The band's target
-// bytes move by 0 to 2 positions a row, so every 32 rows the warp stages
-// the W + 96 bytes those rows can reach in shared memory with 16-byte
-// loads (sentinels outside the window), and each row compares four
-// columns per __vcmpeq4 against the row's query byte, which one shuffle
-// broadcasts from 32 bytes loaded with the window.  A row's W direction
-// bytes leave as C-byte stores, contiguous across the warp; its centre is
-// kept by thread (i-1) mod 32 and the warp stores 32 centres at once.
-// W is 64, 128, 256, 512 or 1024 (C = 2 .. 32).
-//
 // Bound on an H100: latency.  The operations (about 20 int32 a cell) and
 // bytes (one direction byte a cell) of a call are tiny against the card's
-// rates at the aligner's batches (a few dozen lanes); each row is a chain
-// of dependent warp steps (two reductions, three neighbour shuffles, the
-// serial prefix, five scan shuffles and the carry), so a call costs its
-// longest lane's rows times that chain.  The design keeps the chain free
-// of global loads and of barriers wider than the warp.
+// rates at the aligner's batches (a few dozen lanes, one warp each, one
+// warp per scheduler), so a call costs its longest lane's rows times one
+// row's dependent chain, and the design shortens that chain:
+//   * one warp per lane, kDpLanes lanes per block; thread l owns the
+//     C = W/32 contiguous columns [lC, lC + C) and keeps their H in
+//     registers;
+//   * one warp reduction a row: each cell's packed key h << 10 | (1023 - j)
+//     (-1 for a NEG cell) has its maximum at the row maximum's first
+//     column, so one __reduce_max_sync gives the drift, the best cell and
+//     the x_drop test; a thread's best key is a max tree of depth log2 C.
+//     Keys fit int32 while match * NQ < 2^21; past that the wrapper picks
+//     the two-reduction form (max, then min column at the max);
+//   * what does not depend on the drift is issued while the reduction is
+//     in flight: the three neighbour shuffles of H (left neighbour's last
+//     column, right neighbour's first two), the query byte's broadcast and
+//     the target compares over the C + 2 bytes that cover every drift
+//     (__vcmpeq4, four columns a word); the drift then only picks a byte
+//     shift (one funnel shift a word) and the predecessors (selects);
+//   * the best cell, the x_drop test and the last-row test of row i are
+//     settled beside row i + 1's chain: the warp computes row i + 1 and,
+//     if row i was the lane's last, drops it before its stores;
+//   * the gap chain is a serial max-plus prefix over the thread's C
+//     columns, a 5-step shuffle scan of the thread totals and a fix-up, as
+//     in dp_static_kernel (max-plus over exact integers is associative, so
+//     it equals the Kogge-Stone scan over shifts 1 .. W/2), each max-plus
+//     step one DPX instruction (__viaddmax_s32);
+//   * no row waits on device memory: the band's target bytes move by 0 to
+//     2 positions a row, so at the start of every 32-row stage the warp
+//     fetches, by cp.async into the second of two shared buffers, the
+//     W + 160 bytes the next stage's rows can reach (sentinels stored
+//     outside the window), and the query bytes of the next stage into a
+//     register; a stage waits only on the copy issued 32 rows before;
+//   * a row's W direction bytes leave as C-byte stores, contiguous across
+//     the warp; its centre is kept by thread (i-1) mod 32 and the warp
+//     stores 32 centres at once.
+// What is left of a row (about 400 instructions at W = 256, one warp to a
+// scheduler, no other warp to hide its latencies; the shuffle scan is the
+// longest part) is what bounds the kernel now: PERF.md has its cycles a
+// row and the variants that did not pay.
+// W is 64, 128, 256, 512 or 1024 (C = 2 .. 32).
 //
 // tb_adaptive_kernel replaces traceback of aligngraph2_tpu/ops/banded_dp.py.
 // It walks from (best_i, best_j): DIAG to (i-1, j + dc), UP to
@@ -70,15 +85,25 @@
 // JAX's gather rule (a negative j wraps once, then clamps into [0, W)) and
 // the centres at min(i, NQ); it stops at STOP, at i == 0 or after
 // max_steps moves, and writes the moves END->START (zero padded by the
-// caller), the move count and the cursor where it stopped.  Bound: the
-// latency of the walk's dependent chain; a few bytes a step leave HBM
-// idle.  Design: one warp per lane, kTbLanes lanes per block.  The warp
-// stages NS dirs rows (W bytes each, and the row's centre beside it) in
-// shared memory, each copied by cp.async NS-1 rows ahead of the walk
-// (NS * W up to 8 KB, at least 8 rows), so a step's dependent load is a
-// shared-memory load.  Every thread of the warp walks the same path, so
-// control flow stays uniform; thread (s/4) mod 32 keeps move s in a
-// register word and the warp stores 128 moves at once.
+// caller), the move count and the cursor where it stopped.
+// Bound: the latency of the walk's dependent chain; a few bytes a move
+// leave HBM idle.  Design: one warp per lane and block.
+//   * A warp step reads a whole DIAG run: if the next k + 1 moves are
+//     DIAG, move k reads row min(i-1-k, NQ-1) at column j + cen[min(i,NQ)]
+//     - cen[min(i-k,NQ)], so lane k reads that byte, __ballot_sync of "not
+//     DIAG" and __ffs give the run length r, and the step takes r DIAG
+//     moves (cut by max_steps) and the move that ends the run (UP, LEFT or
+//     STOP, or row 0), from lane r's byte and columns.
+//   * A step reads 32 rows below the walk, so the lane's dirs rows and
+//     their centres are staged in tiles of kTile = 32 rows, NB tiles in a
+//     shared ring: the tile of the walk's row and the one below are
+//     resident, the next NB - 2 below in flight.  Each dirs row is one
+//     cp.async.bulk (W bytes) into a row padded to W + 16 bytes, so a
+//     run's 32 rows spread over 8 banks; all of a tile's rows complete on
+//     one mbarrier; centres by cp.async.  The walk waits once a tile, on a
+//     tile fetched NB - 2 tiles earlier.
+//   * Moves go to a 256-byte shared ring and leave 128 at a time as 32
+//     words, one a thread.
 
 #include <cstddef>
 #include <cstdint>
@@ -94,8 +119,16 @@ constexpr int kUp = 2;
 constexpr int kLeft = 3;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDpLanes = 4;    // DP lanes (warps) per block
-constexpr int kTbLanes = 4;    // traceback lanes (warps) per block
 constexpr int kStage = 32;     // rows per staged target window
+constexpr int kKeyBits = 10;   // row key: h << kKeyBits | (1023 - column)
+constexpr int kKeyCol = (1 << kKeyBits) - 1;
+constexpr int kTile = 32;      // dirs rows per traceback tile
+constexpr int kRing = 256;     // bytes of the traceback's move ring
+
+// max(a + b, c) in one DPX instruction
+__device__ __forceinline__ int addmax(int a, int b, int c) {
+  return __viaddmax_s32(a, b, c);
+}
 
 // C direction bytes, packed little-endian in d, stored at dst (C bytes,
 // aligned to C).
@@ -117,16 +150,78 @@ __device__ __forceinline__ void store_dirs(uint8_t* dst,
   }
 }
 
-// Row maximum and its first column over the warp: each thread passes the
-// maximum of its columns and the first of its columns holding it.
-__device__ __forceinline__ void row_argmax(int tmax, int tcol, int& rmax,
-                                           int& rarg) {
-  rmax = __reduce_max_sync(kFull, tmax);
-  rarg = (int)__reduce_min_sync(kFull,
-                                tmax == rmax ? (unsigned)tcol : 0xffffffffu);
+// Maximum of N values (N a power of two) as a tree of depth log2 N.
+template <int N>
+__device__ __forceinline__ int tree_max(const int (&v)[N]) {
+  int t[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) t[k] = v[k];
+#pragma unroll
+  for (int w = 1; w < N; w <<= 1)
+#pragma unroll
+    for (int k = 0; k + w < N; k += 2 * w) t[k] = max(t[k], t[k + w]);
+  return t[0];
 }
 
-template <int W>
+// The row's warp reduction, issued: PACKED, ra = the warp's largest key;
+// else ra = the row maximum and rb its first column.
+template <int C, bool PACKED>
+__device__ __forceinline__ void row_reduce(const int (&H)[C],
+                                           const int (&key)[C], int j0,
+                                           int& ra, int& rb) {
+  if constexpr (PACKED) {
+    ra = __reduce_max_sync(kFull, tree_max(key));
+  } else {
+    int tmax = H[0], tcol = j0;
+#pragma unroll
+    for (int k = 1; k < C; ++k)
+      if (H[k] > tmax) {
+        tmax = H[k];
+        tcol = j0 + k;
+      }
+    ra = __reduce_max_sync(kFull, tmax);
+    rb = (int)__reduce_min_sync(kFull,
+                                tmax == ra ? (unsigned)tcol : 0xffffffffu);
+  }
+}
+
+// The row maximum (kNeg for a row of NEG cells) and its first column.
+template <bool PACKED>
+__device__ __forceinline__ void row_result(int ra, int rb, int& rmax,
+                                           int& rarg) {
+  if constexpr (PACKED) {
+    rmax = ra >= 0 ? ra >> kKeyBits : kNeg;
+    rarg = kKeyCol - (ra & kKeyCol);
+  } else {
+    rmax = ra;
+    rarg = rb;
+  }
+}
+
+// Wait until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The target bytes [s, s + SPAN) of the lane's window into dst as one
+// cp.async group: 16-byte copies, 255 stored where a chunk lies outside
+// [0, NT) (NT % 16 == 0 and s % 16 == 0: a chunk is all in or all out).
+template <int SPAN>
+__device__ __forceinline__ void fetch_window(uint8_t* dst,
+                                             const uint8_t* trow, int s,
+                                             int NT, int lane) {
+  for (int k = lane; k < SPAN / 16; k += 32) {
+    const int x = s + 16 * k;
+    if (x >= 0 && x < NT)
+      __pipeline_memcpy_async(dst + 16 * k, trow + x, 16);
+    else
+      reinterpret_cast<uint4*>(dst)[k] = make_uint4(kFull, kFull, kFull, kFull);
+  }
+  __pipeline_commit();
+}
+
+template <int W, bool PACKED>
 __global__ void __launch_bounds__(32 * kDpLanes)
 dp_adaptive_kernel(const uint8_t* __restrict__ q,
                    const uint8_t* __restrict__ t,
@@ -140,16 +235,18 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
                    int32_t* __restrict__ c_last) {
   constexpr int C = W / 32;        // columns per thread
   constexpr int NA = (C + 3) / 4;  // words of four target bytes a thread
-  constexpr int SPAN = W + 96;     // staged window bytes: 32 rows move it
-                                   // by at most 62, plus 16-byte alignment
-  __shared__ __align__(16) uint8_t s_win[kDpLanes][SPAN];
+  // staged window bytes: a stage's rows read window positions base_{i-1}
+  // .. base_{i-1} + W + 1 (every drift), base_{i-1} at most 126 past the
+  // base its fetch was issued at (63 rows of 0-2), plus 16-byte alignment
+  // and the word rounding of the reads
+  constexpr int SPAN = W + 160;
+  __shared__ __align__(16) uint8_t s_win[kDpLanes][2][SPAN];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * kDpLanes + warp;
   if (b >= B) return;
-  uint8_t* win = s_win[warp];
-  const unsigned* win32 = reinterpret_cast<const unsigned*>(win);
   const int j0 = lane * C;
+  const int kc = kKeyCol - j0;     // column j0 + k keys kc - k
   const uint8_t* qrow = q + (size_t)b * NQ;
   const uint8_t* trow = t + (size_t)b * NT;
   uint8_t* drow = dirs + (size_t)b * NQ * W + j0;
@@ -160,66 +257,100 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
   // x_drop == 0: rows past ql + 1 change nothing but their (still) centre
   const int last_row = xd || ql >= NQ ? NQ : max(ql, 0) + 1;
   int c = c0[b];
+  // cw: the centre the window last moved to, c clipped (c0 may lie
+  // outside [-W, c_hi]; the clip puts row 1 within one of clip(c0)), so
+  // every row moves the window by 0 to 2: base_i = i - 1 + cw_i - W/2
+  int cw = min(max(c, -W), c_hi);
+  int base = cw - W / 2 - 1;
+
+  // stage 0's window (rows 1 .. 32), and the query bytes of stage 0
+  int s_next = base & ~15;
+  fetch_window<SPAN>(s_win[warp][0], trow, s_next, NT, lane);
+  unsigned qn = lane < NQ ? qrow[lane] : 0u;
 
   // row 0: 0 where p = c0 - W/2 + j lies in [0, tlen], else NEG
   int H[C];
-  int tmax = kNeg, tcol = 0;
+  int ra, rb = 0;
+  {
+    int key[C];
 #pragma unroll
-  for (int k = 0; k < C; ++k) {
-    const int p = c - W / 2 + j0 + k;
-    H[k] = p >= 0 && p <= tl ? 0 : kNeg;
-    if (k == 0 || H[k] > tmax) {
-      tmax = H[k];
-      tcol = j0 + k;
+    for (int k = 0; k < C; ++k) {
+      const int p = c - W / 2 + j0 + k;
+      const bool ok = p >= 0 && p <= tl;
+      H[k] = ok ? 0 : kNeg;
+      key[k] = ok ? kc - k : -1;
     }
+    row_reduce<C, PACKED>(H, key, j0, ra, rb);
   }
-  int rmax, rarg;
-  row_argmax(tmax, tcol, rmax, rarg);
+  int lft = __shfl_up_sync(kFull, H[C - 1], 1);
+  int rt0 = __shfl_down_sync(kFull, H[0], 1);
+  int rt1 = __shfl_down_sync(kFull, H[1], 1);
   if (lane == 0) crow[0] = c;
 
   int best = 0, bi = 0, bj = 0;
-  int s = 0;         // window position of win[0]
-  unsigned qv = 0;   // query byte of row (block start + lane)
-  int ckeep = 0;     // centre of row (block start + lane)
-  int i = 0;
-  while (i < last_row) {
-    ++i;
-    const int dc = rmax > 0 ? min(max(rarg - W / 2, -1), 1) : 0;
-    c = min(max(c + dc, -W), c_hi);
-    const int base = i - 1 + c - W / 2;   // window position of column 0
-    const int blk = (i - 1) & (kStage - 1);
+  int s = 0;         // window position of the current stage's win[0]
+  unsigned qv = 0;   // query byte of row (stage start + lane + 1)
+  int ckeep = 0;     // centre of row (stage start + lane + 1)
+  const uint8_t* win = s_win[warp][0];
+  int i = 0;         // the last row computed
+  while (true) {
+    // row i+1, what does not depend on row i's reduction
+    const int blk = i & (kStage - 1);
     if (blk == 0) {
-      // stage the bytes rows i .. i+31 can read, and their query bytes
-      s = base & ~15;
+      // this stage's window was fetched a stage ago: wait, then fetch the
+      // next one into the other buffer, from the current base
+      cp_async_wait<0>();
       __syncwarp();
-      for (int k = lane; k < SPAN / 16; k += 32) {
-        const int x = s + 16 * k;   // NT % 16 == 0: all in or all out
-        uint4 v = make_uint4(kFull, kFull, kFull, kFull);
-        if (x >= 0 && x < NT)
-          v = __ldg(reinterpret_cast<const uint4*>(trow + x));
-        reinterpret_cast<uint4*>(win)[k] = v;
-      }
-      qv = i - 1 + lane < NQ ? qrow[i - 1 + lane] : 0u;
-      __syncwarp();
+      const int st = i / kStage;
+      win = s_win[warp][st & 1];
+      s = s_next;
+      s_next = base & ~15;
+      fetch_window<SPAN>(s_win[warp][(st + 1) & 1], trow, s_next, NT, lane);
+      qv = qn;
+      const int qx = i + kStage + lane;
+      qn = qx < NQ ? qrow[qx] : 0u;
     }
     const unsigned qrep = __shfl_sync(kFull, qv, blk) * 0x01010101u;
-    const int o = base - s + j0;   // in [0, 77 + W - C]
-    const unsigned* wp = win32 + (o >> 2);
-    const unsigned sh = 8u * (o & 3);
-    unsigned eq[NA];
+    // eqw: target compares from window position base_i + j0, so column
+    // j0 + k at drift step d (-1 .. 1) is byte k + 1 + d
+    unsigned eqw[NA + 1];
     {
-      unsigned w[NA + 1];
+      const int o = base - s + j0;   // in [0, 141 + W - C]
+      const unsigned* wp = reinterpret_cast<const unsigned*>(win) + (o >> 2);
+      const unsigned sh = 8u * (o & 3);
+      unsigned w[NA + 2];
 #pragma unroll
-      for (int k = 0; k <= NA; ++k) w[k] = wp[k];
+      for (int k = 0; k < NA + 2; ++k) w[k] = wp[k];
 #pragma unroll
-      for (int k = 0; k < NA; ++k)
-        eq[k] = __vcmpeq4(__funnelshift_r(w[k], w[k + 1], sh), qrep);
+      for (int k = 0; k <= NA; ++k)
+        eqw[k] = __vcmpeq4(__funnelshift_r(w[k], w[k + 1], sh), qrep);
     }
-    // predecessors: E[k] = H_{i-1}[j0 - 1 + k], diag = E[c + 1 + dc],
-    // up = E[c + 2 + dc]
-    int lft = __shfl_up_sync(kFull, H[C - 1], 1);
-    int rt0 = __shfl_down_sync(kFull, H[0], 1);
-    int rt1 = __shfl_down_sync(kFull, H[1], 1);
+    // row i's reduction: the drift, the best cell (row 0's maximum is at
+    // most 0, so it never moves it) and whether the lane stops after row
+    // i, acted on once row i + 1's chain has been issued
+    int rmax, rarg;
+    row_result<PACKED>(ra, rb, rmax, rarg);
+    if (rmax > best) {
+      best = rmax;
+      bi = i;
+      bj = rarg;
+    }
+    const bool stop =
+        i > 0 && (i == last_row ||
+                  (xd && !(i < ql && (best == 0 || rmax >= best - x_drop))));
+    const int c_row = c;
+    ++i;
+    const int dc = rmax > 0 ? min(max(rarg - W / 2, -1), 1) : 0;
+    const int cn = min(max(c + dc, -W), c_hi);
+    const unsigned dsh = 8u * (cn - cw + 1);
+    base += 1 + cn - cw;
+    cw = cn;
+    c = cn;
+    unsigned eq[NA];
+#pragma unroll
+    for (int k = 0; k < NA; ++k) eq[k] = __funnelshift_r(eqw[k], eqw[k + 1], dsh);
+    // predecessors: E[k] = H_{i-1}[j0 - 1 + k], diag = E[k + 1 + dc],
+    // up = E[k + 2 + dc]
     if (lane == 0) lft = kNeg;
     if (lane == 31) {
       rt0 = kNeg;
@@ -251,48 +382,49 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
     // gap chain: serial prefix, scan of the thread totals, fix-up
     H[0] = M[0];
 #pragma unroll
-    for (int k = 1; k < C; ++k) H[k] = max(H[k - 1] + gap, M[k]);
+    for (int k = 1; k < C; ++k) H[k] = addmax(H[k - 1], gap, M[k]);
     int x = H[C - 1];
 #pragma unroll
     for (int e = 1; e < 32; e <<= 1) {
       const int y = __shfl_up_sync(kFull, x, e);
-      if (lane >= e) x = max(y + gap * C * e, x);
+      if (lane >= e) x = addmax(y, gap * C * e, x);
     }
     int carry = __shfl_up_sync(kFull, x, 1);
     if (lane == 0) carry = kNeg;
     const int p0 = base + 1 + j0;
     const bool row_ok = i <= ql;
+    int key[C];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
-      int h = max(carry + gap * (k + 1), H[k]);
+      int h = addmax(carry, gap * (k + 1), H[k]);
       const unsigned at = 8u * (k & 3);
       if (h > M[k]) d[k >> 2] |= (unsigned)kLeft << at;
       const int p = p0 + k;
-      if (!(row_ok && p >= 0 && p <= tl)) {
+      const bool ok = row_ok && p >= 0 && p <= tl;
+      if (!ok) {
         h = kNeg;
         d[k >> 2] &= ~(0xffu << at);
       }
       H[k] = h;
-      if (k == 0 || h > tmax) {
-        tmax = h;
-        tcol = j0 + k;
-      }
+      key[k] = ok ? (h << kKeyBits) + kc - k : -1;
+    }
+    if (stop) {   // row i - 1 was the last: drop row i
+      --i;
+      c = c_row;
+      const int kb = (i - 1) & (kStage - 1);
+      if (lane <= kb) crow[i - kb + lane] = ckeep;
+      break;
     }
     store_dirs<C>(drow + (size_t)(i - 1) * W, d);
     if (lane == blk) ckeep = c;
-    row_argmax(tmax, tcol, rmax, rarg);
-    if (rmax > best) {
-      best = rmax;
-      bi = i;
-      bj = rarg;
-    }
-    const bool dies =
-        xd && !(i < ql && (best == 0 || rmax >= best - x_drop));
-    if (blk == kStage - 1 || dies || i == last_row) {
-      if (lane <= blk) crow[i - blk + lane] = ckeep;
-    }
-    if (dies) break;
+    if (blk == kStage - 1) crow[i - blk + lane] = ckeep;
+    // row i's shuffles and reduction, consumed in the next iteration
+    lft = __shfl_up_sync(kFull, H[C - 1], 1);
+    rt0 = __shfl_down_sync(kFull, H[0], 1);
+    rt1 = __shfl_down_sync(kFull, H[1], 1);
+    row_reduce<C, PACKED>(H, key, j0, ra, rb);
   }
+  cp_async_wait<0>();   // no copy outlives the warp
   if (lane == 0) {
     score[b] = best;
     best_i[b] = bi;
@@ -302,95 +434,203 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
   }
 }
 
-// Asynchronous copy of dirs row g (W bytes) and centers[g] into slot
-// g mod NS, as one cp.async group; an empty group when g < 0, so that the
-// count of groups in flight stays NS - 1.
-template <int NS>
-__device__ __forceinline__ void fetch_dirs_row(uint8_t* slots,
-                                               const uint8_t* lane_dirs,
-                                               const int32_t* lane_centers,
-                                               int g, int W, int lane) {
-  if (g >= 0) {
-    uint8_t* dst = slots + (size_t)(g & (NS - 1)) * (W + 16);
-    const uint8_t* src = lane_dirs + (size_t)g * W;
-    for (int k = 16 * lane; k < W; k += 512)
-      __pipeline_memcpy_async(dst + k, src + k, 16);
-    if (lane == 0) __pipeline_memcpy_async(dst + W, lane_centers + g, 4);
-  }
-  __pipeline_commit();
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// NS dirs-row slots per lane: the walk reads row g while rows g-1 ..
-// g-NS+1 are on their way.
-template <int NS>
-__global__ void __launch_bounds__(32 * kTbLanes)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival on bar that also expects `bytes` of transactions.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the copy engine, completing on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Shared memory of tb_adaptive_kernel<W, NB>: NB tiles of kTile dirs rows
+// (W + 16 bytes each) and their centres, the move ring, NB mbarriers.
+template <int W, int NB>
+constexpr size_t tb_smem() {
+  return (size_t)NB * kTile * (W + 16) + (size_t)NB * kTile * 4 + kRing +
+         (size_t)NB * 8;
+}
+
+template <int W, int NB>
+__global__ void __launch_bounds__(32)
 tb_adaptive_kernel(const uint8_t* __restrict__ dirs,
                    const int32_t* __restrict__ centers,
                    const int32_t* __restrict__ best_i,
-                   const int32_t* __restrict__ best_j, int B, int NQ, int W,
-                   int max_steps, int stride, uint8_t* __restrict__ moves,
+                   const int32_t* __restrict__ best_j, int NQ, int max_steps,
+                   int stride, uint8_t* __restrict__ moves,
                    int32_t* __restrict__ n_out, int32_t* __restrict__ si,
                    int32_t* __restrict__ sj) {
-  extern __shared__ int4 s_dyn[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kTbLanes + warp;
-  if (b >= B) return;
-  const int slot = W + 16;   // a dirs row, then its centre
-  uint8_t* slots = reinterpret_cast<uint8_t*>(s_dyn) + (size_t)warp * NS * slot;
+  constexpr int RS = W + 16;          // a staged dirs row, padded
+  constexpr int ROWS = NB * kTile;    // staged rows: row x at x % ROWS
+  static_assert((NB & (NB - 1)) == 0 && NB >= 4, "NB: a power of two >= 4");
+  extern __shared__ __align__(128) uint8_t s_dyn[];
+  uint8_t* s_dirs = s_dyn;
+  int32_t* s_cen = reinterpret_cast<int32_t*>(s_dyn + ROWS * RS);
+  unsigned* ring = reinterpret_cast<unsigned*>(s_cen + ROWS);
+  uint8_t* ring8 = reinterpret_cast<uint8_t*>(ring);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring8 + kRing);
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
   const uint8_t* db = dirs + (size_t)b * NQ * W;
   const int32_t* cb = centers + (size_t)b * (NQ + 1);
   unsigned* mb = reinterpret_cast<unsigned*>(moves + (size_t)b * stride);
   int i = best_i[b];
   int j = best_j[b];
-  int g = 0;          // dirs row in the walk's slot
+  ring[lane] = 0;
+  ring[lane + 32] = 0;
+  int u = 0;          // the tile of the walk's dirs row min(i-1, NQ-1)
+  int u0 = 0;         // the first tile fetched
   int cen_hi = 0;     // centers[min(i, NQ)]
   int cen_nq = 0;     // centers[NQ]
-  if (i > 0) {
+
+  // tile v (rows v*kTile ..) into slot v % NB as one cp.async group: each
+  // row one bulk copy, all on the slot's mbarrier; its centres by
+  // cp.async.  An empty group when v < 0, so that NB - 2 groups stay in
+  // flight behind the two resident tiles.
+  auto fetch = [&](int v) {
+    if (v >= 0) {
+      const int r0 = v * kTile;
+      const int n = min(kTile, NQ - r0);
+      const int slot = v & (NB - 1);
+      if (lane == 0) mbar_expect(bar + slot, (unsigned)(n * W));
+      __syncwarp();
+      if (lane < n) {
+        bulk_load(s_dirs + (size_t)(slot * kTile + lane) * RS,
+                  db + (size_t)(r0 + lane) * W, W, bar + slot);
+        __pipeline_memcpy_async(s_cen + slot * kTile + lane, cb + r0 + lane,
+                                4);
+      }
+    }
+    __pipeline_commit();
+  };
+  // tile v's rows have landed: its slot's ((u0 - v) / NB)-th fill
+  auto wait_tile = [&](int v) {
+    if (v >= 0) mbar_wait(bar + (v & (NB - 1)), ((u0 - v) / NB) & 1);
+  };
+  // centers[min(x, NQ)] for x in the resident rows or x >= NQ
+  auto cen_at = [&](int x) { return x >= NQ ? cen_nq : s_cen[x & (ROWS - 1)]; };
+
+  const bool walks = i > 0 && max_steps > 0;
+  if (walks) {
+    if (lane < NB) mbar_init(bar + lane, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    __syncwarp();
     cen_nq = cb[NQ];
     cen_hi = cb[min(i, NQ)];
-    g = min(i - 1, NQ - 1);
-#pragma unroll
-    for (int k = 0; k < NS; ++k)
-      fetch_dirs_row<NS>(slots, db, cb, g - k, W, lane);
-    __pipeline_wait_prior(NS - 1);
+    u0 = u = min(i - 1, NQ - 1) / kTile;
+#pragma unroll 1
+    for (int k = 0; k < NB; ++k) fetch(u0 - k);
+    cp_async_wait<NB - 2>();
+    wait_tile(u0);
+    wait_tile(u0 - 1);
   }
   __syncwarp();
-  unsigned acc = 0;   // moves 4 * (lane + 32 * block) .. + 3
   int step = 0;
   while (step < max_steps && i > 0) {
-    const int ii = i - 1;
-    const int gi = min(ii, NQ - 1);
-    if (gi != g) {   // one row down
-      __syncwarp();  // slot g is free: start row g - NS into it
-      fetch_dirs_row<NS>(slots, db, cb, g - NS, W, lane);
-      __pipeline_wait_prior(NS - 1);
+    // lane k: move k of a DIAG run, at (i - k, jk); jn the column after it
+    const int ik = i - lane;
+    const int ca = lane == 0 ? cen_hi : cen_at(max(ik, 0));
+    const int cn = cen_at(max(ik - 1, 0));
+    const int jk = j + cen_hi - ca;
+    const int jn = j + cen_hi - cn;
+    const int jw = jk < 0 ? jk + W : jk;
+    const int col = min(max(jw, 0), W - 1);
+    const int row = max(min(ik - 1, NQ - 1), 0);
+    const int code = ik > 0 ? s_dirs[(row & (ROWS - 1)) * RS + col] : kStop;
+    const unsigned nd = __ballot_sync(kFull, code != kDiag);
+    const int r = nd ? __ffs(nd) - 1 : 32;    // the run's DIAG moves
+    const int take = min(r, max_steps - step);
+    if (lane < take) ring8[(step + lane) & (kRing - 1)] = kDiag;
+    const int src = min(take, 31);
+    const int j_t = __shfl_sync(kFull, jk, src);
+    const int jn_t = __shfl_sync(kFull, jn, src);
+    const int code_t = __shfl_sync(kFull, code, src);
+    const int s0 = step;
+    step += take;
+    i -= take;
+    bool end = false;
+    if (take < r) {             // max_steps cut the run
+      j = j_t;
+      end = true;
+    } else if (r == 32) {       // 32 DIAG moves: the next run
+      cen_hi += j - jn_t;
+      j = jn_t;
+    } else if (code_t == kStop || step == max_steps) {   // STOP or row 0
+      j = j_t;
+      end = true;
+    } else {                    // the move that ends the run
+      if (lane == 0) ring8[step & (kRing - 1)] = (uint8_t)code_t;
+      ++step;
+      if (code_t == kLeft) {
+        cen_hi += j - j_t;
+        j = j_t - 1;
+      } else {
+        cen_hi += j - jn_t;
+        j = jn_t + 1;
+        --i;
+      }
+    }
+    if ((s0 >> 7) != (step >> 7)) {   // 128 moves complete: store them
       __syncwarp();
-      g = gi;
+      const int o = ((s0 >> 7) & 1) * 32 + lane;
+      mb[(s0 >> 7) * 32 + lane] = ring[o];
+      ring[o] = 0;
+      __syncwarp();
     }
-    const uint8_t* row = slots + (size_t)(g & (NS - 1)) * slot;
-    const int jw = j < 0 ? j + W : j;
-    const int cur = row[min(max(jw, 0), W - 1)];
-    if (cur == kStop) break;
-    if (lane == ((step >> 2) & 31)) acc |= (unsigned)cur << (8 * (step & 3));
-    ++step;
-    if ((step & 127) == 0) {   // 128 moves complete: store them
-      mb[(step >> 7) * 32 - 32 + lane] = acc;
-      acc = 0;
-    }
-    if (cur == kLeft) {
-      --j;
-    } else {
-      const int cen_lo =
-          ii >= NQ ? cen_nq : *reinterpret_cast<const int32_t*>(row + W);
-      j += cen_hi - cen_lo + (cur == kUp);
-      --i;
-      cen_hi = cen_lo;
+    if (end) break;
+    // keep the 32 rows below the walk's row resident
+    const int g = min(i - 1, NQ - 1);
+    while (i > 0 && g < u * kTile) {
+      __syncwarp();   // slot u is free: fetch tile u - NB into it
+      fetch(u - NB);
+      cp_async_wait<NB - 2>();
+      wait_tile(u - 2);
+      __syncwarp();
+      --u;
     }
   }
   // the open block of up to 128 moves
-  if (lane < ((step & 127) + 3) >> 2) mb[(step >> 7) * 32 + lane] = acc;
-  __pipeline_wait_prior(0);   // no copy outlives the warp
+  __syncwarp();
+  if (lane < ((step & 127) + 3) >> 2)
+    mb[(step >> 7) * 32 + lane] = ring[((step >> 7) & 1) * 32 + lane];
+  if (walks) {   // no copy outlives the block
+    cp_async_wait<0>();
+    for (int v = max(u - NB + 1, 0); v <= u - 2; ++v) wait_tile(v);
+  }
   if (lane == 0) {
     n_out[b] = step;
     si[b] = i;
@@ -399,27 +639,36 @@ tb_adaptive_kernel(const uint8_t* __restrict__ dirs,
 }
 
 template <int W>
-void launch_dp(const uint8_t* q, const uint8_t* t, const int32_t* qlen,
-               const int32_t* tlen, const int32_t* c0, int B, int NQ, int NT,
-               int c_hi, int match, int mismatch, int gap, int x_drop,
-               int32_t* score, int32_t* best_i, int32_t* best_j,
-               uint8_t* dirs, int32_t* centers, int32_t* rows,
-               int32_t* c_last, cudaStream_t s) {
-  dp_adaptive_kernel<W><<<(B + kDpLanes - 1) / kDpLanes, 32 * kDpLanes, 0,
-                          s>>>(q, t, qlen, tlen, c0, B, NQ, NT, c_hi, match,
-                               mismatch, gap, x_drop, score, best_i, best_j,
-                               dirs, centers, rows, c_last);
+void launch_dp(bool packed, const uint8_t* q, const uint8_t* t,
+               const int32_t* qlen, const int32_t* tlen, const int32_t* c0,
+               int B, int NQ, int NT, int c_hi, int match, int mismatch,
+               int gap, int x_drop, int32_t* score, int32_t* best_i,
+               int32_t* best_j, uint8_t* dirs, int32_t* centers,
+               int32_t* rows, int32_t* c_last, cudaStream_t s) {
+  const dim3 grid((B + kDpLanes - 1) / kDpLanes), block(32 * kDpLanes);
+  if (packed)
+    dp_adaptive_kernel<W, true><<<grid, block, 0, s>>>(
+        q, t, qlen, tlen, c0, B, NQ, NT, c_hi, match, mismatch, gap, x_drop,
+        score, best_i, best_j, dirs, centers, rows, c_last);
+  else
+    dp_adaptive_kernel<W, false><<<grid, block, 0, s>>>(
+        q, t, qlen, tlen, c0, B, NQ, NT, c_hi, match, mismatch, gap, x_drop,
+        score, best_i, best_j, dirs, centers, rows, c_last);
 }
 
-template <int NS>
-void launch_tb(const uint8_t* dirs, const int32_t* centers,
-               const int32_t* best_i, const int32_t* best_j, int B, int NQ,
-               int W, int max_steps, int stride, uint8_t* moves, int32_t* n,
-               int32_t* si, int32_t* sj, cudaStream_t s) {
-  const size_t smem = (size_t)kTbLanes * NS * (W + 16);
-  tb_adaptive_kernel<NS><<<(B + kTbLanes - 1) / kTbLanes, 32 * kTbLanes,
-                           smem, s>>>(dirs, centers, best_i, best_j, B, NQ,
-                                      W, max_steps, stride, moves, n, si, sj);
+template <int W, int NB>
+cudaError_t launch_tb(const uint8_t* dirs, const int32_t* centers,
+                      const int32_t* best_i, const int32_t* best_j, int B,
+                      int NQ, int max_steps, int stride, uint8_t* moves,
+                      int32_t* n, int32_t* si, int32_t* sj, cudaStream_t s) {
+  constexpr size_t smem = tb_smem<W, NB>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      tb_adaptive_kernel<W, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  tb_adaptive_kernel<W, NB><<<B, 32, smem, s>>>(
+      dirs, centers, best_i, best_j, NQ, max_steps, stride, moves, n, si, sj);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -429,9 +678,9 @@ extern "C" {
 int agc_dp_adaptive(int device, const void* q, const void* t,
                     const void* qlen, const void* tlen, const void* c0, int B,
                     int NQ, int NT, int W, int c_hi, int match, int mismatch,
-                    int gap, int x_drop, void* score, void* best_i,
-                    void* best_j, void* dirs, void* centers, void* rows,
-                    void* c_last, void* stream) {
+                    int gap, int x_drop, int packed, void* score,
+                    void* best_i, void* best_j, void* dirs, void* centers,
+                    void* rows, void* c_last, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0) return 0;
@@ -450,10 +699,10 @@ int agc_dp_adaptive(int device, const void* q, const void* t,
   auto* cl = static_cast<int32_t*>(c_last);
   auto s = static_cast<cudaStream_t>(stream);
   switch (W) {
-#define AGC_DP_CASE(w)                                                      \
-  case w:                                                                   \
-    launch_dp<w>(qq, tt, ql, tl, cc, B, NQ, NT, c_hi, match, mismatch, gap, \
-                 x_drop, sc, bi, bj, dd, ce, rw, cl, s);                    \
+#define AGC_DP_CASE(w)                                                    \
+  case w:                                                                 \
+    launch_dp<w>(packed != 0, qq, tt, ql, tl, cc, B, NQ, NT, c_hi, match, \
+                 mismatch, gap, x_drop, sc, bi, bj, dd, ce, rw, cl, s);   \
     break;
     AGC_DP_CASE(64)
     AGC_DP_CASE(128)
@@ -484,28 +733,32 @@ int agc_tb_adaptive(int device, const void* dirs, const void* centers,
   auto* ci = static_cast<int32_t*>(si);
   auto* cj = static_cast<int32_t*>(sj);
   auto s = static_cast<cudaStream_t>(stream);
-  // up to 8 KB of dirs rows per lane, at least 8 rows: 20-37 KB a block
+  // NB tiles of 32 rows: 40-134 KB of shared memory a lane
   switch (W) {
     case 64:
+      e = launch_tb<64, 16>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv, nn,
+                            ci, cj, s);
+      break;
     case 128:
-      launch_tb<64>(dd, ce, bi, bj, B, NQ, W, max_steps, stride, mv, nn, ci,
-                    cj, s);
+      e = launch_tb<128, 16>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv,
+                             nn, ci, cj, s);
       break;
     case 256:
-      launch_tb<32>(dd, ce, bi, bj, B, NQ, W, max_steps, stride, mv, nn, ci,
-                    cj, s);
+      e = launch_tb<256, 8>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv, nn,
+                            ci, cj, s);
       break;
     case 512:
-      launch_tb<16>(dd, ce, bi, bj, B, NQ, W, max_steps, stride, mv, nn, ci,
-                    cj, s);
+      e = launch_tb<512, 4>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv, nn,
+                            ci, cj, s);
       break;
     case 1024:
-      launch_tb<8>(dd, ce, bi, bj, B, NQ, W, max_steps, stride, mv, nn, ci,
-                   cj, s);
+      e = launch_tb<1024, 4>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv,
+                             nn, ci, cj, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -65,7 +65,7 @@ def get_lib() -> ctypes.CDLL:
 def get_adaptive_lib() -> ctypes.CDLL:
     """The adaptive-band kernels (``csrc/banded_adaptive.cu``)."""
     return _load(ADAPTIVE_SRC, {
-        "agc_dp_adaptive": [_ci] + [_vp] * 5 + [_ci] * 9 + [_vp] * 8,
+        "agc_dp_adaptive": [_ci] + [_vp] * 5 + [_ci] * 10 + [_vp] * 8,
         "agc_tb_adaptive": [_ci] + [_vp] * 4 + [_ci] * 5 + [_vp] * 5})
 
 

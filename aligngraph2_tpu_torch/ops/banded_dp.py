@@ -53,6 +53,8 @@ import torch
 NEG = -(1 << 28)
 # the band widths the CUDA kernels take: W/32 columns a thread, at least two
 KERNEL_WIDTHS = (64, 128, 256, 512, 1024)
+# dp_adaptive_kernel's row key: h << KEY_BITS | (2^KEY_BITS - 1 - column)
+KEY_BITS = 10
 
 # direction codes
 STOP, DIAG, UP, LEFT = 0, 1, 2, 3
@@ -293,6 +295,15 @@ def traceback_ref(dirs, centers, best_i, best_j, *, max_steps):
 # the CUDA kernels
 
 
+def packed_key_ok(match: int, NQ: int) -> bool:
+    """Whether dp_adaptive_kernel may reduce a row with one packed key,
+    h << KEY_BITS | (2^KEY_BITS - 1 - column): every score of NQ rows is
+    at most max(match, 0) * NQ, so every key fits int32 iff that bound is
+    below 2^(31 - KEY_BITS).  Otherwise the kernel takes two reductions a
+    row (the maximum, then its first column).  A choice by shape."""
+    return max(match, 0) * NQ < 1 << (31 - KEY_BITS)
+
+
 def need_width(W: int) -> None:
     """Raise unless the kernels take band width ``W``."""
     if W not in KERNEL_WIDTHS:
@@ -342,9 +353,9 @@ def dp_adaptive(q, qlen, t, tlen, c0, *, W, match, mismatch, gap, x_drop):
     code = lib.agc_dp_adaptive(
         index, q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
         c0.data_ptr(), B, NQ, NT, W, c_hi, match, mismatch, gap, x_drop,
-        score.data_ptr(), best_i.data_ptr(), best_j.data_ptr(),
-        dirs.data_ptr(), centers.data_ptr(), rows.data_ptr(),
-        c_last.data_ptr(), stream)
+        int(packed_key_ok(match, NQ)), score.data_ptr(), best_i.data_ptr(),
+        best_j.data_ptr(), dirs.data_ptr(), centers.data_ptr(),
+        rows.data_ptr(), c_last.data_ptr(), stream)
     _cuda.check(lib, code, "dp_adaptive_kernel launch")
     banded_align.launches += 1
     centers = fill_centers(centers, rows, c_last, x_drop)

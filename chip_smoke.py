@@ -21,12 +21,14 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
           bounds and registers;
   adaptive_gate the adaptive band's two kernels against their plain
           torch versions on the card (B=32, NQ=8192, W=256 at x_drop 250
-          and 0; B=8, NQ=32768; W=64 and W=1024 at B=16, NQ=4096), on
-          lanes with indel drift, clustered x_drop deaths, short reads and
-          windows and c0 at both clips: score, best cell, every row of
-          dirs and centers, moves, move count and start (also with
-          max_steps cutting walks), all exact; kernel and plain times,
-          bounds and registers per shape;
+          and 0; B=8, NQ=32768; W=64, 128, 512 and 1024 at B=16,
+          NQ=4096), on lanes with indel drift, clustered x_drop deaths,
+          short reads and windows, c0 at both clips and one lane whose
+          walk is a single DIAG run: score, best cell, every row of dirs
+          and centers, moves, move count and start (also with max_steps
+          cutting walks, inside that run too), all exact; kernel and
+          plain times, cycles a row and a move, bounds and registers per
+          shape;
   stage   stages 2, 3 (with the seed rescue) and 4 of the pipeline on a
           synthetic PacBio dataset, on CUDA at full width, with walls,
           reads/s, DP cells and alignments; launch counts are zeroed before
@@ -45,7 +47,10 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
           (each launched; no static-band launch, no plain version on the
           card); wall, reads/s, lanes, blocks, the device index's bytes,
           and per sharded function its calls, card ms per call
-          (synchronised before and after) and bytes bound; the first
+          (synchronised before and after) and bytes bound; an extender
+          call's card time by kind (the two kernels, the wrappers' torch
+          ops, the copies each way), every extender call replayed under
+          torch.profiler; the first
           MESH_CPU_READS reads also through the mesh path on the CPU in a
           second child process: their .ref text must be equal; and the
           candidate selection at a 5 Mb target's width (its loop as CUDA
@@ -117,10 +122,12 @@ GATE = ((GATE_B, GATE_NQ, 256, 0), (GATE_B, GATE_NQ, 256, 250),
         (256, 4096, 1024, 250))   # the widest band the kernels take
 # (B, NQ, W, x_drop) of the adaptive gate, NT = NQ + 2W: the mesh
 # extender's lanes at the 8192 and 32768 buckets (the kernels line reads
-# the first), the first at x_drop 0, and the narrowest and widest bands
+# the first), the first at x_drop 0, and every other band the kernels take
 ADAPTIVE_GATE = ((32, 8192, 256, 250), (8, 32768, 256, 250),
                  (32, 8192, 256, 0), (16, 4096, 64, 250),
+                 (16, 4096, 128, 250), (16, 4096, 512, 250),
                  (16, 4096, 1024, 250))
+DIAG_LANE = 7   # the adaptive gate's lane whose walk is one DIAG run
 # one DP row's dependent chain on the card, a model: ten warp-wide steps
 # (two reductions, the neighbour and query shuffles, five scan shuffles
 # and the carry) of ~30 cycles, and three dependent int32 operations a
@@ -333,6 +340,18 @@ def adaptive_lanes(rng, B, NQ, W):
     return q, qlen, t, tlen, c0
 
 
+def diag_lane(lanes, W, b=DIAG_LANE):
+    """Lane ``b`` of ``adaptive_lanes``' output (a random read) replaced, in
+    place, by the target itself read from column W/2 of row 1 (c0 = W): the
+    band never drifts, the best cell is the last row's, and the walk is
+    one DIAG run from row NQ to row 0."""
+    q, qlen, t, tlen, c0 = lanes
+    NQ = q.shape[1]
+    q[b] = t[b, W:W + NQ]
+    qlen[b], tlen[b], c0[b] = NQ, t.shape[1], W
+    return lanes
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds per call over ``reps`` calls, after one warm-up,
     timed with CUDA events."""
@@ -515,11 +534,13 @@ def adaptive_bounds(rows, B, NQ, W, steps, max_steps):
 
 def adaptive_gate(args, regs) -> dict:
     """The adaptive band's kernels against their plain versions on the
-    card, on adaptive_lanes at each ADAPTIVE_GATE shape: score, best cell,
-    every row of dirs and centers, and the traceback's moves, count and
-    start at max_steps = NQ + NT and at NQ/2 (which cuts the longer
-    walks), all exact.  Prints kernel and plain ms, bounds and registers
-    per shape; returns the timings at the first shape."""
+    card, on adaptive_lanes at each ADAPTIVE_GATE shape, lane DIAG_LANE
+    one DIAG run (diag_lane): score, best cell, every row of dirs and
+    centers, and the traceback's moves, count and start at max_steps =
+    NQ + NT, NQ/2 and NQ/2 + 7 (which cut the longer walks, the DIAG
+    lane's inside its run), all exact.  Prints kernel and plain ms,
+    cycles a row and a move (at SM_CLOCK_HZ), bounds and registers per
+    shape; returns the timings at the first shape."""
     import numpy as np
     import torch
     from aligngraph2_tpu_torch.ops import banded_dp as bd
@@ -530,8 +551,8 @@ def adaptive_gate(args, regs) -> dict:
     timing = {}
     for B, NQ, W, x_drop in ADAPTIVE_GATE:
         NT = NQ + 2 * W
-        lanes = tuple(torch.from_numpy(x).to(dev)
-                      for x in adaptive_lanes(rng, B, NQ, W))
+        lanes = tuple(torch.from_numpy(x).to(dev) for x in diag_lane(
+            adaptive_lanes(rng, B, NQ, W), W))
         kw = dict(W=W, x_drop=x_drop)
         bad = []
 
@@ -546,7 +567,7 @@ def adaptive_gate(args, regs) -> dict:
         for name in bd.BandedResult._fields:
             differ("dp", name, getattr(res, name), getattr(ref, name))
         walks = {}
-        for max_steps in (NQ + NT, NQ // 2):
+        for max_steps in (NQ + NT, NQ // 2, NQ // 2 + 7):
             ms, tbr = once_ms(lambda: bd.traceback_ref(
                 ref.dirs, ref.centers, ref.best_i, ref.best_j,
                 max_steps=max_steps))
@@ -563,6 +584,9 @@ def adaptive_gate(args, regs) -> dict:
             max_steps=NQ + NT), REPS)
         dp_b, dp_by, dp_lat, tb_b, tb_by, tb_lat = adaptive_bounds(
             rows, B, NQ, W, tb[1], NQ + NT)
+        diag_moves = tb[0][DIAG_LANE, :int(tb[1][DIAG_LANE])]
+        if int(tb[1][DIAG_LANE]) != NQ or bool((diag_moves != bd.DIAG).any()):
+            bad.append("diag_lane_walk")
         # how far the band's centre moved from row 1 to the last row run
         # on the lanes with planted drift (kinds 0 and 1): past W/2
         drift = (torch.arange(B, device=dev) % 8) < 2
@@ -575,15 +599,22 @@ def adaptive_gate(args, regs) -> dict:
               "planted_drift_max": int(moved.max()),
               "walks_cut_at_nq_half": int((walks[NQ // 2][0][1]
                                            == NQ // 2).sum()),
+              "walks_cut_at_nq_half_plus_7": int((walks[NQ // 2 + 7][0][1]
+                                                  == NQ // 2 + 7).sum()),
               "dp_ms": dp_ms, "dp_plain_ms": plain_dp_ms,
+              "dp_cycles_per_row": dp_ms * 1e-3 * SM_CLOCK_HZ
+              / int(rows.max()),
               "dp_bound_ms": dp_b, "dp_bound_by": dp_by,
               "dp_latency_bound_ms": dp_lat,
               "tb_ms": tb_ms, "tb_plain_ms": plain_tb_ms,
+              "tb_cycles_per_move": tb_ms * 1e-3 * SM_CLOCK_HZ
+              / max(int(tb[1].max()), 1),
               "tb_bound_ms": tb_b, "tb_bound_by": tb_by,
               "tb_latency_bound_ms": tb_lat, "tb_moves": int(tb[1].sum()),
+              "tb_longest_walk": int(tb[1].max()),
               "regs": {k: v for k, v in regs.items()
-                       if k == f"dp_adaptive_kernel<{W}>"
-                       or k.startswith("tb_adaptive_kernel")}})
+                       if k.startswith((f"dp_adaptive_kernel<{W},",
+                                        f"tb_adaptive_kernel<{W},"))}})
         if bad:
             raise SystemExit(f"adaptive_gate failed at B={B} NQ={NQ} W={W} "
                              f"x_drop={x_drop}: {bad}")
@@ -856,9 +887,12 @@ class MeshCalls:
     this process while open: per function its calls, card ms (the card
     synchronised before and after each call) and the bytes of its tensors,
     inputs and outputs each once; ``lanes`` counts the live lanes
-    ``_extend_body`` took.  The seeder and extender call these through
-    module attributes, which is what is replaced; no package file
-    changes."""
+    ``_extend_body`` took.  The extenders that make_sharded_extender
+    builds are wrapped too: ``extender`` holds their calls and ms (host
+    arrays in and out, so the copies each way included), and ``replay``
+    the inputs of every call with a live lane.  The
+    seeder and extender call these through module attributes, which is
+    what is replaced; no package file changes."""
 
     def __enter__(self):
         from aligngraph2_tpu_torch.parallel import sharded
@@ -866,7 +900,10 @@ class MeshCalls:
         self.stats = {n: {"calls": 0, "ms": 0.0, "bytes": 0}
                       for n in MESH_FUNCTIONS}
         self.lanes = 0
+        self.extender = {"calls": 0, "ms": 0.0}
+        self.replay = []
         self._saved = {n: getattr(sharded, n) for n in MESH_FUNCTIONS}
+        self._saved["make_sharded_extender"] = sharded.make_sharded_extender
         for name, fn in self._saved.items():
             setattr(sharded, name, self._wrap(name, fn))
         return self
@@ -875,7 +912,20 @@ class MeshCalls:
         for name, fn in self._saved.items():
             setattr(self._mod, name, fn)
 
+    def _wrap_extender(self, ext):
+        def call(*arrays):
+            ms, out = synced_ms(ext, *arrays)
+            self.extender["calls"] += 1
+            self.extender["ms"] += ms
+            if arrays[1].any():
+                self.replay.append((ext, [x.copy() for x in arrays]))
+            return out
+        return call
+
     def _wrap(self, name, fn):
+        if name == "make_sharded_extender":
+            return lambda *a, **kw: self._wrap_extender(fn(*a, **kw))
+
         def call(*args, **kw):
             ms, out = synced_ms(fn, *args, **kw)
             st = self.stats[name]
@@ -886,6 +936,42 @@ class MeshCalls:
                 self.lanes += int((args[1] > 0).sum())
             return out
         return call
+
+
+def extender_split(mc) -> dict:
+    """Where an extender call's time goes: the extender calls that
+    MeshCalls kept (all with a live lane), replayed under torch.profiler,
+    card time by kind per call (the two kernels, the wrappers' torch ops: dirs and moves zeroed,
+    fill_centers, the centres gather, and the copies each way), beside the
+    run's ms per whole extender call (host arrays in and out) and per
+    ``_extend_body`` call (device tensors in and out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kinds = {"dp_adaptive_kernel": "dp_kernel",
+             "tb_adaptive_kernel": "tb_kernel",
+             "Memcpy HtoD": "copies_to_card", "Memcpy DtoH": "copies_to_host"}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for ext, arrays in mc.replay:
+            ext(*arrays)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n = max(len(mc.replay), 1)
+    device = dict.fromkeys([*kinds.values(), "wrapper_torch_ops"], 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kind = next((v for k, v in kinds.items() if k in e.key),
+                        "wrapper_torch_ops")
+            device[kind] += e.self_device_time_total / 1e3 / n
+    body = mc.stats["_extend_body"]
+    return {"calls": mc.extender["calls"],
+            "call_ms": mc.extender["ms"] / max(mc.extender["calls"], 1),
+            "body_ms": body["ms"] / max(body["calls"], 1),
+            "replayed": len(mc.replay), "replay_wall_ms_per_call":
+            wall_ms / n, "replay_card_ms_per_call": device}
 
 
 def select_gate(seed) -> dict:
@@ -955,6 +1041,7 @@ def mesh(reads, ctgs, mesh_cpu) -> dict:
                        "bound_ms_per_call": bytes_bound_ms(
                            st["bytes"] / calls), "bound_by": "bytes"}
     aligned = len({a.query_name for a in alns})
+    split = extender_split(mc)
     gate_n = select_gate(len(reads))
     emit({"phase": "mesh", "mesh": al.mesh.shape,
           "device": str(al.mesh.devices[0, 0]), "reads": n,
@@ -970,6 +1057,7 @@ def mesh(reads, ctgs, mesh_cpu) -> dict:
           "seeder_ms_per_call": by_fn["_seed_body"]["ms_per_call"],
           "extender_calls": mc.stats["_extend_body"]["calls"],
           "extender_ms_per_call": by_fn["_extend_body"]["ms_per_call"],
+          "extender_split": split,
           "by_function": by_fn, "cpu_reads": len(few),
           "cpu_ref_text_equal": card_text == cpu_text,
           "cpu_alignments": card_text.count("\n") // 3, "cpu_s": cpu_s,

@@ -2,8 +2,13 @@
 against the JAX package's banded_align / traceback on the lanes the card
 gate uses (chip_smoke.adaptive_lanes) at small size, and the pieces of the
 CUDA kernels' contract that run on the CPU: the gap chain's serial form,
-the frozen-centre fill, the width check and the aligner's plain route.
-Every comparison is exact."""
+the DP's packed row key and staged target span, the traceback's DIAG-run
+step (emulated in numpy), the frozen-centre fill, the width check and the
+aligner's plain route.  Every comparison is exact."""
+
+import os
+import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -14,6 +19,8 @@ from aligngraph2_tpu.ops import banded_dp as jdp
 from aligngraph2_tpu_torch.align import aligner as taligner
 from aligngraph2_tpu_torch.config import AlignerConfig
 from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
+from aligngraph2_tpu_torch.ops import _cuda
+from aligngraph2_tpu_torch.ops import adaptive_variants as av
 from aligngraph2_tpu_torch.ops import banded_dp as tdp
 from aligngraph2_tpu_torch.ops.seedextend import Candidate
 from tests.synth import mutate, random_genome
@@ -70,6 +77,35 @@ def test_serial_prefix_equals_kogge_stone(W):
             H[:, j] = np.maximum(H[:, j], H[:, j - 1] + gap)
         want = tdp.maxplus_scan(torch.from_numpy(M), gap, tdp.ks_shifts(W))
         np.testing.assert_array_equal(H, want.numpy(), err_msg=str(gap))
+
+
+@pytest.mark.parametrize("W", [64, 128, 256, 512, 1024])
+def test_blocked_gap_chain_equals_kogge_stone(W):
+    """dp_adaptive_kernel's gap chain, emulated on 32 threads of C = W/32
+    columns: the serial prefix over each thread's columns, an inclusive
+    shuffle scan of the thread totals over shifts 1 .. 16 (a lane with
+    no source lane keeps its value), the carry from the left neighbour
+    (NEG into lane 0), and the fix-up max(carry + gap*(k+1), prefix[k]),
+    equals maxplus_scan over the shifts 1 .. W/2, exactly."""
+    C = W // 32
+    rng = np.random.default_rng(W + 1)
+    M = rng.integers(0, 400, (16, 32, C)).astype(np.int64)
+    M[rng.random(M.shape) < 0.4] = 0
+    lane = np.arange(32)
+    for gap in (-3, -1, -7):
+        H = M.copy()
+        for k in range(1, C):
+            H[:, :, k] = np.maximum(H[:, :, k - 1] + gap, M[:, :, k])
+        x = H[:, :, C - 1].copy()
+        for e in (1, 2, 4, 8, 16):
+            y = np.roll(x, e, axis=1)   # __shfl_up_sync: lane - e
+            x = np.where(lane >= e, np.maximum(y + gap * C * e, x), x)
+        carry = np.where(lane >= 1, np.roll(x, 1, axis=1), tdp.NEG)
+        H = np.maximum(carry[:, :, None] + gap * (np.arange(C) + 1), H)
+        want = tdp.maxplus_scan(torch.from_numpy(M.reshape(16, W)), gap,
+                                tdp.ks_shifts(W))
+        np.testing.assert_array_equal(H.reshape(16, W), want.numpy(),
+                                      err_msg=str(gap))
 
 
 QLENS = np.array([0, 1, 17, 40, 63, 64, 100, NQ], np.int32)
@@ -160,3 +196,263 @@ def test_extend_batch_plain_takes_plain_versions(plain, monkeypatch):
     assert calls == want
     assert len(out) == 1 and out.alignments[0].qe - out.alignments[0].qb \
         > 450
+
+
+KERNEL_SRC = os.path.join(os.path.dirname(tdp.__file__), os.pardir, "csrc",
+                          "banded_adaptive.cu")
+
+
+def _kernel_constant(pattern):
+    with open(KERNEL_SRC) as f:
+        m = re.search(pattern, f.read())
+    assert m, pattern
+    return int(m.group(1))
+
+
+def _row_keys(H, W):
+    """dp_adaptive_kernel's row reduction on rows H (R, W): each cell's key
+    h << KEY_BITS | (2^KEY_BITS - 1 - j), -1 for a NEG cell; a thread's C =
+    W/32 columns as a max tree, then the max over the 32 threads.  Returns
+    (row max, first column) as the kernel decodes them."""
+    C = W // 32
+    lo = (1 << tdp.KEY_BITS) - 1
+    j = np.arange(W, dtype=np.int64)
+    keys = np.where(H >= 0, (H.astype(np.int64) << tdp.KEY_BITS) + lo - j, -1)
+    assert keys.max() <= np.iinfo(np.int32).max
+    t = keys.reshape(len(H), 32, C)
+    while t.shape[2] > 1:   # the tree: pairs of neighbours
+        t = np.maximum(t[:, :, 0::2], t[:, :, 1::2])
+    key = t[:, :, 0].max(axis=1)
+    rmax = np.where(key >= 0, key >> tdp.KEY_BITS, tdp.NEG)
+    return rmax, lo - (key & lo)
+
+
+@pytest.mark.parametrize("W", tdp.KERNEL_WIDTHS)
+def test_packed_row_key_equals_two_reductions(W):
+    """One max over the packed keys gives the row maximum and its first
+    column (the two reductions of the plain rule: max, then the smallest
+    column at the max), with ties, NEG cells, rows of NEG and rows at the
+    largest score the bound admits; so the drift, the best cell and the
+    x_drop rule read the same."""
+    rng = np.random.default_rng(W)
+    R = 64
+    H = rng.integers(0, 6, (R, W)).astype(np.int32)   # many ties
+    H[rng.random(H.shape) < 0.3] = tdp.NEG
+    H[0] = tdp.NEG                                    # a row of NEG
+    H[1] = 0
+    H[2, : W // 2] = tdp.NEG
+    H[3] = rng.integers(0, 1 << 21, W)                # up to the bound
+    H[4, [5, W - 1]] = (1 << 21) - 1                  # the largest, tied
+    H[5, -1] = 7                                      # last column only
+    rmax, rarg = _row_keys(H, W)
+    np.testing.assert_array_equal(rmax, H.max(axis=1))
+    live = rmax >= 0
+    np.testing.assert_array_equal(rarg[live], H.argmax(axis=1)[live])
+    assert rmax[0] == tdp.NEG and rarg[4] == 5 and rarg[5] == W - 1
+    for best in (0, 3, 5, 1 << 20):
+        for x_drop in (1, 2, 250):
+            dies = ~((best == 0) | (rmax >= best - x_drop))
+            want = ~((best == 0) | (H.max(axis=1) >= best - x_drop))
+            np.testing.assert_array_equal(dies, want)
+
+
+def test_packed_key_bound_picks_the_form():
+    """The wrapper reduces with packed keys exactly while every key of
+    max(match, 0) * NQ fits int32, else with two reductions; the
+    aligner's widest bucket (NQ = 131072) at match 2 is packed."""
+    top = (1 << (31 - tdp.KEY_BITS)) - 1           # the largest score
+    assert top * (1 << tdp.KEY_BITS) + (1 << tdp.KEY_BITS) - 1 \
+        == np.iinfo(np.int32).max
+    assert tdp.packed_key_ok(2, 131072)
+    assert tdp.packed_key_ok(1, top) and not tdp.packed_key_ok(1, top + 1)
+    assert tdp.packed_key_ok(2, top // 2) and not tdp.packed_key_ok(2, 1 << 20)
+    assert not tdp.packed_key_ok(16, 131072)
+    assert tdp.packed_key_ok(0, 10 ** 9) and tdp.packed_key_ok(-1, 10 ** 9)
+
+
+def test_staged_span_covers_every_drift():
+    """dp_adaptive_kernel stages kStage rows' target bytes a stage ahead:
+    at the start of stage k it fetches stage k + 1's SPAN bytes from
+    window position base & ~15 (base_i = i - 1 + c_i - W/2 of the row just
+    computed), and row i + 1 reads the words from base_i - s + j0 that
+    cover its C columns at every drift.  Every drift sequence (the base
+    moves 0, 1 or 2 a row) keeps every such read inside the span."""
+    stage = _kernel_constant(r"constexpr int kStage = (\d+);")
+    extra = _kernel_constant(r"constexpr int SPAN = W \+ (\d+);")
+    rng = np.random.default_rng(0)
+    n = 6 * stage
+    seqs = [np.zeros(n, int), np.full(n, 2), np.tile([0, 2], n // 2),
+            np.r_[np.zeros(stage, int), np.full(n - stage, 2)],
+            np.r_[np.full(stage, 2), np.zeros(stage, int),
+                  np.full(n - 2 * stage, 2)],
+            *(rng.integers(0, 3, n) for _ in range(8))]
+    for W in tdp.KERNEL_WIDTHS:
+        C = W // 32
+        NA = (C + 3) // 4
+        span = W + extra
+        assert span % 16 == 0
+        reach = 0
+        for steps in seqs:
+            for base0 in range(-W - 40, -W - 8):   # every residue mod 16
+                base = base0 + np.r_[0, np.cumsum(steps)]
+                for i in range(n):     # row i + 1 reads from base[i]
+                    k = i // stage
+                    s = int(base[stage * max(k - 1, 0)]) & ~15
+                    o = int(base[i]) - s + np.arange(0, W, C)
+                    lo = (o >> 2) * 4
+                    assert o.min() >= 0
+                    assert (lo + 4 * (NA + 2)).max() <= span, (W, i)
+                    reach = max(reach, int((lo + 4 * (NA + 2)).max()))
+        assert reach > span - 16   # the span is not loose by a chunk
+
+
+@pytest.mark.parametrize("x_drop", [0, 250])
+def test_window_moves_by_at_most_one_from_the_clipped_centre(x_drop):
+    """The staged span rests on the window base moving 0 to 2 a row: the
+    kernel measures each row's move from the clipped centre (clip(c0) for
+    row 1), and c0 may lie outside [-W, c_hi] (the gate's lanes 5 and 6
+    start there).  On such lanes the plain version's centres move by at
+    most one from clip(c0) at row 1 and by at most one a row after."""
+    W = 32
+    lanes = _lanes(W, 5 + x_drop, B=16)
+    c0 = lanes[4]
+    NT = lanes[2].shape[1]
+    c_hi = NT if x_drop else NT + 2 * W + NQ + 4
+    c0[5], c0[13] = -W - 5, -W - 1       # below the clip
+    if x_drop:
+        c0[6], c0[14] = NT + 6, NT + 1    # above it
+    res = tdp.banded_align_ref(*lanes, W=W, x_drop=x_drop)
+    cen = res.centers.numpy().astype(np.int64)
+    moved = np.diff(np.c_[np.clip(c0, -W, c_hi), cen[:, 1:]], axis=1)
+    rows = res.best_i.numpy()   # every lane runs at least to its best row
+    for b in range(len(c0)):
+        assert np.abs(moved[b, :max(int(rows[b]), 1)]).max() <= 1, b
+
+
+def _run_walk(dirs, centers, best_i, best_j, max_steps, tile=32):
+    """tb_adaptive_kernel's walk, emulated in numpy: each warp step, lane k
+    reads the byte of move k of a DIAG run from (i, j) (row min(i-1-k,
+    NQ-1), column j + cen[min(i,NQ)] - cen[min(i-k,NQ)] by JAX's gather
+    rule); the first non-DIAG lane r (a ballot and __ffs) gives the run;
+    the step takes r DIAG moves cut by max_steps, then lane r's move (UP,
+    LEFT, or the end at STOP or row 0).  Rows and centres read must lie
+    in the two resident tiles (the walk's row's and the one below) or be
+    centre NQ.  Returns (moves, n, si, sj) and counts of the cases hit."""
+    B, NQ, W = dirs.shape
+    moves = np.zeros((B, max_steps), np.uint8)
+    n = np.zeros(B, np.int32)
+    si = np.zeros(B, np.int32)
+    sj = np.zeros(B, np.int32)
+    seen = Counter()
+    for b in range(B):
+        i, j = int(best_i[b]), int(best_j[b])
+        cen = centers[b].astype(np.int64)
+        cen_hi = int(cen[min(i, NQ)]) if i > 0 else 0
+        step = 0
+        seen["start_i_0"] += i == 0
+        seen["start_i_nq"] += i >= NQ
+        while step < max_steps and i > 0:
+            g = min(i - 1, NQ - 1)
+            lo = (g // tile - 1) * tile
+            jk, jn, code = [], [], []
+            for k in range(32):
+                ik = i - k
+
+                def cen_at(x, live=ik > 0):
+                    x = max(x, 0)
+                    if x >= NQ:
+                        return int(cen[NQ])
+                    assert not live or lo <= x <= g, (x, lo, g)
+                    return int(cen[x])
+                ca = cen_hi if k == 0 else cen_at(ik)
+                jk.append(j + cen_hi - ca)
+                jn.append(j + cen_hi - cen_at(ik - 1))
+                col = jk[-1] + W if jk[-1] < 0 else jk[-1]
+                if ik > 0:
+                    row = min(ik - 1, NQ - 1)
+                    assert lo <= row <= g
+                    seen["col_clamped"] += not 0 <= col < W
+                    code.append(int(dirs[b, row, min(max(col, 0), W - 1)]))
+                else:
+                    code.append(tdp.STOP)
+            nd = [k for k in range(32) if code[k] != tdp.DIAG]
+            r = nd[0] if nd else 32
+            take = min(r, max_steps - step)
+            moves[b, step:step + take] = tdp.DIAG
+            src = min(take, 31)
+            step += take
+            i -= take
+            if take < r:
+                seen["cut_in_run"] += 1
+                j = jk[src]
+                break
+            if r == 32:
+                seen["run_32"] += 1
+                cen_hi += j - jn[src]
+                j = jn[src]
+                continue
+            if code[src] == tdp.STOP or step == max_steps:
+                seen["row_0_in_run" if i == 0 else "stop"] += 1
+                j = jk[src]
+                break
+            moves[b, step] = code[src]
+            step += 1
+            if code[src] == tdp.LEFT:
+                cen_hi += j - jk[src]
+                j = jk[src] - 1
+            else:
+                cen_hi += j - jn[src]
+                j = jn[src] + 1
+                i -= 1
+        n[b], si[b], sj[b] = step, i, j
+    return moves, n, si, sj, seen
+
+
+@pytest.mark.parametrize("W", [32, 64])
+def test_run_step_walk_equals_traceback(W):
+    """The DIAG-run walk equals traceback_ref and the JAX package's
+    traceback on the gate's lanes (lane 7 one DIAG run from row NQ),
+    with start cells moved to row NQ, row 0 and both band edges, at
+    max_steps NQ + NT, NQ/2 and NQ/2 + 7: walks cut inside a run, runs
+    of 32, runs that reach row 0, columns past either edge."""
+    lanes = chip_smoke.diag_lane(_lanes(W, 11 * W, B=24), W)
+    NT = lanes[2].shape[1]
+    res = tdp.banded_align_ref(*lanes, W=W, x_drop=20)
+    assert int(res.best_i[chip_smoke.DIAG_LANE]) == NQ
+    dirs, centers = res.dirs.numpy(), res.centers.numpy()
+    bi, bj = res.best_i.numpy().copy(), res.best_j.numpy().copy()
+    bi[8], bj[8] = NQ, W // 2 + 3
+    bi[9] = 0
+    bj[10], bj[11] = 0, W - 1
+    bi[12], bj[12] = bi[1], -2
+    seen = Counter()
+    for ms in (NQ + NT, NQ // 2, NQ // 2 + 7):
+        *got, hit = _run_walk(dirs, centers, bi, bj, ms)
+        seen.update(hit)
+        want = tdp.traceback_ref(res.dirs, res.centers, torch.from_numpy(bi),
+                                 torch.from_numpy(bj), max_steps=ms)
+        jw = jdp.traceback(np.asarray(dirs), np.asarray(centers), bi, bj,
+                           max_steps=ms)
+        for a, b, c, name in zip(got, want, jw, ("moves", "n", "si", "sj")):
+            np.testing.assert_array_equal(a, b.numpy(), err_msg=f"{name}@{ms}")
+            np.testing.assert_array_equal(a, np.asarray(c),
+                                          err_msg=f"jax {name}@{ms}")
+    for case in ("cut_in_run", "run_32", "row_0_in_run", "stop",
+                 "col_clamped", "start_i_0", "start_i_nq"):
+        assert seen[case] > 0, (case, seen)
+
+
+def test_variant_edits_apply_to_the_kernel_source():
+    """ops/adaptive_variants.py builds its variants and its clock64()
+    build by text edits of csrc/banded_adaptive.cu: each edit's text occurs
+    exactly once in the committed source, so an edit of the kernel that
+    moves one fails here rather than on the card."""
+    with open(_cuda.ADAPTIVE_SRC) as f:
+        src = f.read()
+    for name, (_, edits) in av.VARIANTS.items():
+        assert av.edit(src, edits) != src, name
+    clocked = av.clocked(src, "new")
+    assert len(re.findall(r"CLK\(\d\);", clocked)) == 9
+    assert "agc_read_clk" in clocked
+    with pytest.raises(ValueError):
+        av.edit(src, [("no such text", "")])
