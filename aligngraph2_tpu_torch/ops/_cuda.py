@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/`` (plain C interface, ctypes).
 
-Two libraries: ``csrc/banded_static.cu`` (the static band, :func:`get_lib`)
-and ``csrc/banded_adaptive.cu`` (the adaptive band,
-:func:`get_adaptive_lib`).  Each is compiled with nvcc on first use into
-the port's ``_build/`` directory, under a name that carries the hash of
-the source and the command, so ``python3 chip_smoke.py`` on a fresh
-checkout builds it.  A failed build raises: there is no fallback to the
+Three libraries: ``csrc/banded_static.cu`` (the static band,
+:func:`get_lib`), ``csrc/banded_adaptive.cu`` (the adaptive band,
+:func:`get_adaptive_lib`) and ``csrc/seed_mesh.cu`` (the mesh seeder's
+histogram and dedup, :func:`get_seed_lib`).  Each is compiled with nvcc
+on first use into the port's ``_build/`` directory, under a name that
+carries the hash of the source and the command, so ``python3
+chip_smoke.py`` on a fresh checkout builds it.  A failed build raises: there is no fallback to the
 plain versions.  nvcc is taken from ``$CUDA_HOME/bin`` as PyTorch finds
 it.
 """
@@ -22,7 +23,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SRC = os.path.join(CSRC, "banded_static.cu")
 ADAPTIVE_SRC = os.path.join(CSRC, "banded_adaptive.cu")
-SOURCES = (SRC, ADAPTIVE_SRC)
+SEED_SRC = os.path.join(CSRC, "seed_mesh.cu")
+SOURCES = (SRC, ADAPTIVE_SRC, SEED_SRC)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -52,7 +54,7 @@ def _load(src: str, signatures: dict) -> ctypes.CDLL:
         return _libs[src]
 
 
-_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def get_lib() -> ctypes.CDLL:
@@ -67,6 +69,14 @@ def get_adaptive_lib() -> ctypes.CDLL:
     return _load(ADAPTIVE_SRC, {
         "agc_dp_adaptive": [_ci] + [_vp] * 5 + [_ci] * 10 + [_vp] * 8,
         "agc_tb_adaptive": [_ci] + [_vp] * 4 + [_ci] * 5 + [_vp] * 5})
+
+
+def get_seed_lib() -> ctypes.CDLL:
+    """The mesh seeder's kernels (``csrc/seed_mesh.cu``)."""
+    return _load(SEED_SRC, {
+        "agc_seed_block": [_ci] + [_vp] * 4 + [_ci] * 10 + [_vp] * 3,
+        "agc_select_candidates": [_ci] + [_vp] * 4 + [_ci] * 5
+        + [_cf, _cf, _ci, _ci, _cf] + [_vp] * 5})
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -24,15 +24,20 @@ seeding and the static band):
      versions on the CPU) on the live lanes, split over every device of
      the mesh (``_extend_body``).
 
-The JAX functions are XLA, not Pallas, so here they are torch ops on each
-shard's device, value for value: int32 arithmetic that wraps where JAX's
+The JAX functions are XLA, not Pallas.  Their plain versions here
+(``_seed_block_candidates_ref``, ``_select_read_candidates_ref``) are
+torch ops, value for value: int32 arithmetic that wraps where JAX's
 wraps, floor division, ``lax.top_k``'s tie rule (the lower bin first) and
-float32 clamp arithmetic.  The seeder and the extender queue every
-shard's work before they copy any result back, so several cards overlap;
-a shard whose rows are all padding (length 0) is not run, since such a
-row yields no candidate and such a lane scores 0.  On a card the dedup's
-sequential loop replays CUDA graphs of 64 steps (``ops/banded_dp.py``'s
-``_loop``).
+float32 clamp arithmetic; the dedup's sequential loop goes through
+``ops/banded_dp.py``'s ``_loop``.  ``_seed_block_candidates`` and
+``_select_read_candidates`` take the plain versions on CPU tensors and on
+CUDA tensors launch ``seed_block_kernel`` and ``select_candidates_kernel``
+of ``csrc/seed_mesh.cu`` (:func:`seed_block`, :func:`select_candidates`,
+which count their launches in ``.launches``), or raise.  The seeder and
+the extender queue every shard's work before they copy any result back,
+so several cards overlap; a shard whose rows are all padding (length 0)
+is not run, since such a row yields no candidate and such a lane scores
+0.
 
 Outputs are bit-identical for any mesh shape: the per-block tables and
 their order do not depend on shard boundaries, host compaction is
@@ -59,9 +64,21 @@ from ..ops.kmer import kmer_codes_batch, kmer_codes_np
 
 INT32_MAX = np.iinfo(np.int32).max
 
-# (blocks x query positions) elements one pass of _seed_block_candidates
-# holds per array
+# (blocks x query positions) elements one pass of
+# _seed_block_candidates_ref holds per array
 _SEED_CELLS = 1 << 22
+# the kept entries a read's dedup holds in shared memory (kSelCap of
+# csrc/seed_mesh.cu); past them select_candidates_kernel spills to the
+# scratch the wrapper allocates.  Both stores hold whole chunks of
+# SELECT_CHUNK entries (kChunk), which the kernel's scan reads at once.
+SELECT_CHUNK = 256
+SELECT_SHARED_ENTRIES = 112 * SELECT_CHUNK
+# the dynamic shared memory a block of seed_block_kernel may take: 227 KB
+# less its static reduction array
+SEED_SMEM_MAX = 232448 - 128
+# seed_block_kernel's search table holds every 2^SEED_SHIFT-th code of a
+# block (kSeedShift)
+SEED_SHIFT = 6
 
 
 class BlockIndex(NamedTuple):
@@ -135,9 +152,10 @@ def _on(dev: torch.device):
 # SEED step
 
 
-def _seed_block_candidates(q_codes, q_valid, sorted_codes, sorted_pos, *,
-                           NQ, nbins, bin_w, occ, max_occ, top_t):
-    """Per (stream, local block): top-T candidate diagonal bins.
+def _seed_block_candidates_ref(q_codes, q_valid, sorted_codes, sorted_pos,
+                               *, NQ, nbins, bin_w, occ, max_occ, top_t):
+    """Per (stream, local block): top-T candidate diagonal bins; the plain
+    version.
 
     q_codes/q_valid: (S, NK) int32/bool; sorted_codes/pos: (NB_l, L)
     int32, on one device.  Returns cnt (S, NB_l, T) int32 smoothed hit
@@ -187,9 +205,10 @@ def _seed_block_candidates(q_codes, q_valid, sorted_codes, sorted_pos, *,
             torch.cat(diags).permute(1, 0, 2))
 
 
-def _select_read_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta,
-                            bin_w, prune=0.0):
-    """Global per-read candidate selection over the gathered table.
+def _select_read_candidates_ref(cnt, tid, gdiag, *, K, min_hits, alpha,
+                                beta, bin_w, prune=0.0):
+    """Global per-read candidate selection over the gathered table; the
+    plain version.
 
     cnt/gdiag: (B, N) int32; tid: (N,) or (B, N) int32 — per read the
     flattened (strand, block, T) candidates, fwd strand first then
@@ -248,6 +267,129 @@ def _select_read_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta,
 
     return (place(pick, torch.bool), place(order, torch.int32),
             place(score, torch.float32))
+
+
+def _seed_block_candidates(q_codes, q_valid, sorted_codes, sorted_pos, *,
+                           NQ, nbins, bin_w, occ, max_occ, top_t):
+    """Per (stream, local block): top-T candidate diagonal bins, cnt and
+    diag (S, NB_l, T) int32: :func:`seed_block` on CUDA tensors, the plain
+    version on CPU tensors (arguments as
+    :func:`_seed_block_candidates_ref`)."""
+    kw = dict(NQ=NQ, nbins=nbins, bin_w=bin_w, occ=occ, max_occ=max_occ,
+              top_t=top_t)
+    if q_codes.device.type == "cpu":
+        return _seed_block_candidates_ref(q_codes, q_valid, sorted_codes,
+                                          sorted_pos, **kw)
+    return seed_block(q_codes, q_valid, sorted_codes, sorted_pos, **kw)
+
+
+def _select_read_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta,
+                            bin_w, prune=0.0):
+    """Global per-read candidate selection, (sel, idx, score) each (B, K):
+    :func:`select_candidates` on CUDA tensors, the plain version on CPU
+    tensors (arguments as :func:`_select_read_candidates_ref`)."""
+    kw = dict(K=K, min_hits=min_hits, alpha=alpha, beta=beta, bin_w=bin_w,
+              prune=prune)
+    if cnt.device.type == "cpu":
+        return _select_read_candidates_ref(cnt, tid, gdiag, **kw)
+    return select_candidates(cnt, tid, gdiag, **kw)
+
+
+def _need_int32(**values) -> None:
+    """Raise unless every value fits the kernels' int arguments."""
+    for name, v in values.items():
+        if not -(1 << 31) <= int(v) < 1 << 31:
+            raise ValueError(f"{name}={v} does not fit int32")
+
+
+def seed_smem_bytes(nbins: int, L: int) -> int:
+    """seed_block_kernel's dynamic shared memory: hist and dsum, nbins
+    int32 each, a bit a bin for the taken winners, and the search table
+    (every 2^SEED_SHIFT-th of a block's L codes)."""
+    return (2 * nbins + (nbins + 31) // 32 + ((L - 1) >> SEED_SHIFT) + 1) * 4
+
+
+def seed_block(q_codes, q_valid, sorted_codes, sorted_pos, *, NQ, nbins,
+               bin_w, occ, max_occ, top_t):
+    """Launch ``seed_block_kernel`` on CUDA tensors: q_codes int32 and
+    q_valid bool (S, NK), sorted_codes and sorted_pos int32 (NB_l, L), all
+    on one card and contiguous.  Returns contiguous cnt and diag (S, NB_l,
+    T) int32.  Raises on any input the kernel does not take, among them
+    bins and a search table past SEED_SMEM_MAX."""
+    from ..ops import _cuda
+    S, NK = q_codes.shape
+    NB, L = sorted_codes.shape
+    dev = q_codes.device
+    _cuda.need(q_codes, "q_codes", torch.int32, (S, NK))
+    _cuda.need(q_valid, "q_valid", torch.bool, (S, NK), dev)
+    _cuda.need(sorted_codes, "sorted_codes", torch.int32, (NB, L), dev)
+    _cuda.need(sorted_pos, "sorted_pos", torch.int32, (NB, L), dev)
+    _need_int32(NQ=NQ, occ=occ)
+    smem = seed_smem_bytes(nbins, max(L, 1))
+    if not (0 < S <= 65535 and NB > 0 and L > 0 and bin_w > 0
+            and 0 < top_t <= nbins and 0 <= max_occ < (1 << 31) - 2
+            and smem <= SEED_SMEM_MAX):
+        raise ValueError(
+            f"S={S}, NB={NB}, L={L}, bin_w={bin_w}, top_t={top_t}, "
+            f"nbins={nbins}, max_occ={max_occ}: need 0 < S <= 65535, NB, L "
+            f"and bin_w positive, 0 < top_t <= nbins, max_occ >= 0, and "
+            f"{smem} bytes of bins within {SEED_SMEM_MAX}")
+    lib = _cuda.get_seed_lib()
+    cnt, diag = (torch.empty((S, NB, top_t), dtype=torch.int32, device=dev)
+                 for _ in range(2))
+    index, stream = _cuda.launch_target(dev)
+    code = lib.agc_seed_block(
+        index, q_codes.data_ptr(), q_valid.data_ptr(),
+        sorted_codes.data_ptr(), sorted_pos.data_ptr(), S, NK, NB, L, NQ,
+        nbins, bin_w, occ, max_occ, top_t, cnt.data_ptr(),
+        diag.data_ptr(), stream)
+    _cuda.check(lib, code, "seed_block_kernel launch")
+    seed_block.launches += 1
+    return cnt, diag
+
+
+seed_block.launches = 0
+
+
+def select_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta, bin_w,
+                      prune=0.0):
+    """Launch ``select_candidates_kernel`` on CUDA tensors: cnt and gdiag
+    int32 (B, N), tid int32 (N,) or (B, N), all on one card and
+    contiguous; the stable cnt-descending order is one torch.sort here.
+    Returns (sel (B, K) bool, idx (B, K) int32, score (B, K) float32).
+    Raises on any input the kernel does not take."""
+    from ..ops import _cuda
+    B, N = cnt.shape
+    dev = cnt.device
+    _cuda.need(cnt, "cnt", torch.int32, (B, N))
+    _cuda.need(tid, "tid", torch.int32,
+               (N,) if tid.dim() == 1 else (B, N), dev)
+    _cuda.need(gdiag, "gdiag", torch.int32, (B, N), dev)
+    _need_int32(min_hits=min_hits, bin_w=bin_w)
+    if B <= 0 or N <= 0 or not 0 < K < 1 << 31:
+        raise ValueError(f"B={B}, N={N}, K={K}: need all three positive")
+    lib = _cuda.get_seed_lib()
+    order = torch.sort(-cnt, dim=1, stable=True).indices
+    # a read's (order index, count) of every kept entry, then the (tid,
+    # gdiag) of those past the shared entries, in whole chunks
+    spill = -(-max(N - SELECT_SHARED_ENTRIES, 0) // SELECT_CHUNK) \
+        * SELECT_CHUNK
+    scratch = torch.empty((B, N + spill, 2), dtype=torch.int32, device=dev)
+    sel = torch.empty((B, K), dtype=torch.bool, device=dev)
+    idx = torch.empty((B, K), dtype=torch.int32, device=dev)
+    score = torch.empty((B, K), dtype=torch.float32, device=dev)
+    index, stream = _cuda.launch_target(dev)
+    code = lib.agc_select_candidates(
+        index, cnt.data_ptr(), tid.data_ptr(), gdiag.data_ptr(),
+        order.data_ptr(), B, N, 0 if tid.dim() == 1 else N, K, min_hits,
+        alpha, beta, bin_w, int(prune > 0.0), prune, scratch.data_ptr(),
+        sel.data_ptr(), idx.data_ptr(), score.data_ptr(), stream)
+    _cuda.check(lib, code, "select_candidates_kernel launch")
+    select_candidates.launches += 1
+    return sel, idx, score
+
+
+select_candidates.launches = 0
 
 
 def _seed_body(q_fwd, q_rev, read_lens, index_row, *, k, BL, bin_w,

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--genome-mb 1]
 
-Builds the kernels (two CUDA sources) and the five host cores from this
+Builds the kernels (three CUDA sources) and the five host cores from this
 checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
 
   card    the card, the build seconds and ptxas' register report; any
@@ -43,18 +43,28 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
           both walls;
   mesh    read -> contig of every read of the stage phase's dataset
           through the mesh path (parallel/) on a 1x1 mesh of the card:
-          block-sharded device seeding and the adaptive band's kernels
-          (each launched; no static-band launch, no plain version on the
-          card); wall, reads/s, lanes, blocks, the device index's bytes,
-          and per sharded function its calls, card ms per call
-          (synchronised before and after) and bytes bound; an extender
-          call's card time by kind (the two kernels, the wrappers' torch
-          ops, the copies each way), every extender call replayed under
-          torch.profiler; the first
-          MESH_CPU_READS reads also through the mesh path on the CPU in a
-          second child process: their .ref text must be equal; and the
-          candidate selection at a 5 Mb target's width (its loop as CUDA
-          graphs) equal on the card and the CPU;
+          block-sharded device seeding through the seeder's two kernels
+          and extension through the adaptive band's (each of the four
+          launched; no static-band launch, no plain version on the card);
+          wall, reads/s, lanes, blocks, the device index's bytes, and per
+          sharded function its calls, card ms per call (synchronised
+          before and after) and bytes bound; a seeder call's and an
+          extender call's card time by kind (the kernels, the torch ops,
+          the copies each way), every seeder and extender call replayed
+          under torch.profiler; the first MESH_CPU_READS reads also
+          through the mesh path on the CPU in a second child process:
+          their .ref text must be equal;
+  seed_gate the histogram kernel against its plain version on the card,
+          every output exact, on the mesh phase's block index and reads:
+          S=32 at NQ=8192 and S=16 at NQ=16384 (bin_w 128), and S=8
+          contig pieces at NQ=131072, bin_w 32 (shared memory past 48
+          KB); kernel and plain ms, bound and latency model;
+  select_gate the dedup kernel against its plain version on the card at
+          B=32, N=96, 544 and 12,800 (the 1 Mb, 5 Mb and 120 Mb widths),
+          planted ties, rows whose kept list reaches ~11,500 entries and
+          rows at +-2^31, every output exact, and at N=12,800 once more
+          with the shared entries cut to 4,096 (the spill); the same
+          numbers;
   profile stage 2 again under torch.profiler: host spans, device time
           by kernel, the card's idle share;
   pipeline the whole eight-stage pipeline through run_pipeline on CUDA,
@@ -84,7 +94,8 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
   total   the script's wall so far;
   kernels one entry per CUDA kernel with its launches (the static
           band's in the pipeline phase, the adaptive band's in the mesh
-          and long_read phases), error, times and bound.
+          and long_read phases, the seeder's in the mesh phase), error,
+          times and bound.
 
 then the card's name and power limit as nvidia-smi prints them and, last,
 {"ok": true, "device": {...}}.  Any failure exits nonzero before that
@@ -173,6 +184,38 @@ DEVICE_FUNCTIONS = {
     "_chain_sort": "aligngraph2_tpu/consensus/device.py:306"}
 # each function of the mesh path (parallel/sharded.py): the XLA function
 # it replaces
+# (S, NQ, bin_w) of the seed gate: the mesh phase's 8192 and 16384 buckets
+# (the kernels line reads the first) and the widest bins at the longest
+# bucket, where hist and dsum take more than 48 KB of shared memory
+SEED_GATE = ((32, 8192, 128), (16, 16384, 128), (8, 131072, 32))
+SEED_OCC, SEED_MAX_OCC = 4, 256
+# N candidates a read in the select gate: 1 Mb (6 blocks), 5 Mb (34),
+# 120 Mb (800) and ~300 Mb (2,048) targets at K = 8 (the kernels line
+# reads the first); at the last, the kept lists of select_inputs' spread
+# rows (~90% of N past min_hits) pass the kernel's shared entries, so
+# they reach its spill
+SELECT_GATE_N = (96, 544, 12800, 32768)
+SELECT_GATE_B = 32
+# calls of a plain version timed, after a warm-up call
+PLAIN_REPS = 3
+# latency models (models, not measurements): an L2 hit and a shared
+# memory step; the seed kernel's threads a block and block reads a
+# position (the table search leaves a window of two or three cache
+# lines); a dedup step (ballot, shuffles, vote, append) and 32 kept
+# entries the lanes scan
+L2_HIT_CYCLES = 260
+SHARED_STEP_CYCLES = 30
+SEED_THREADS = 512
+SEED_L2_READS = 3
+SELECT_STEP_CYCLES = 40
+SELECT_SCAN_CYCLES = 8
+# operations of the least work (the bounds, not the kernels' algorithms)
+SEED_HASH_OPS = 4       # a block's code into a hash table of (lo, n), or a
+                        # query code's probe: hash, load, compare, select
+SEED_HIT_OPS = 10       # gather, diagonal, floor division, clamp, 2 adds
+SEED_BIN_OPS = 4        # a bin of one top-T pass: pair, key, compare
+SELECT_OPS = 8          # a candidate: 3 gathers, compare, mean, clamp, pick
+SELECT_PROBE_OPS = 4    # a probe of the kept table: hash, load, 2 compares
 MESH_FUNCTIONS = {
     "_seed_block_candidates": "aligngraph2_tpu/parallel/sharded.py:126",
     "_select_read_candidates": "aligngraph2_tpu/parallel/sharded.py:171",
@@ -211,6 +254,7 @@ def build_all() -> dict:
 
     jobs = {"banded_static.cu": _cuda.get_lib,
             "banded_adaptive.cu": _cuda.get_adaptive_lib,
+            "seed_mesh.cu": _cuda.get_seed_lib,
             "fastio.cpp": io_native.get_lib,
             "seedhits.cpp": ops_native.get_lib,
             "ingest.cpp": ingest_native.get_lib,
@@ -229,8 +273,9 @@ def build_all() -> dict:
 
 def ptxas_regs(ptxas) -> dict:
     """{kernel: registers a thread} from ptxas' report, kernels named as
-    dp_static_kernel<W>, tb_static_kernel<slots>, dp_adaptive_kernel<W>
-    and tb_adaptive_kernel<slots>."""
+    dp_static_kernel<W>, tb_static_kernel<slots>, dp_adaptive_kernel<W>,
+    tb_adaptive_kernel<slots>, seed_block_kernel and
+    select_candidates_kernel."""
     regs, name = {}, None
     for ln in ptxas:
         m = re.search(r"((?:dp|tb)_(?:static|adaptive)_kernel)"
@@ -238,6 +283,9 @@ def ptxas_regs(ptxas) -> dict:
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             name = f"{m.group(1)}<{args}>"
+        m = re.search(r"\d(seed_block_kernel|select_candidates_kernel)", ln)
+        if m and "Compiling entry" in ln:
+            name = m.group(1)
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             regs[name] = int(m.group(1))
@@ -365,6 +413,20 @@ def cuda_ms(fn, reps):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def warm_ms(fn, reps):
+    """(Mean milliseconds per call over ``reps`` calls after a warm-up
+    call, the warm-up's output): for the plain versions, whose first call
+    on the card pays for torch's set-up."""
+    import torch
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
 
 
 def once_ms(fn):
@@ -627,20 +689,22 @@ def adaptive_gate(args, regs) -> dict:
 
 
 class RefCalls:
-    """Counts the calls of the adaptive band's plain versions on CUDA
-    tensors while open: the main path must take the kernels.  The
-    package's modules call them through module attributes, which is what
-    is replaced; no package file changes."""
-
-    NAMES = ("banded_align_ref", "traceback_ref")
+    """Counts the calls of the adaptive band's and the mesh seeder's plain
+    versions on CUDA tensors while open: the main path must take the
+    kernels.  The package's modules call them through module attributes,
+    which is what is replaced; no package file changes."""
 
     def __enter__(self):
         import torch
         from aligngraph2_tpu_torch.align import aligner
         from aligngraph2_tpu_torch.ops import banded_dp
+        from aligngraph2_tpu_torch.parallel import sharded
         self.cuda_calls = 0
-        self._saved = [(mod, name, getattr(mod, name))
-                       for mod in (banded_dp, aligner) for name in self.NAMES]
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (banded_dp, "banded_align_ref"), (banded_dp, "traceback_ref"),
+            (aligner, "banded_align_ref"), (aligner, "traceback_ref"),
+            (sharded, "_seed_block_candidates_ref"),
+            (sharded, "_select_read_candidates_ref"))]
 
         def wrap(fn):
             def call(x, *args, **kw):
@@ -664,12 +728,19 @@ def adaptive_launches() -> dict:
             "traceback": bd.traceback.launches}
 
 
+def seed_launches() -> dict:
+    from aligngraph2_tpu_torch.parallel import sharded
+    return {"seed_block": sharded.seed_block.launches,
+            "select_candidates": sharded.select_candidates.launches}
+
+
 def zero_launches() -> None:
     """Every kernel's launch count set to 0."""
     from aligngraph2_tpu_torch.ops import banded_dp as bd
     from aligngraph2_tpu_torch.ops import banded_static as bs
+    from aligngraph2_tpu_torch.parallel import sharded
     for fn in (bs.banded_dp_static, bs.traceback_static, bd.banded_align,
-               bd.traceback):
+               bd.traceback, sharded.seed_block, sharded.select_candidates):
         fn.launches = 0
 
 
@@ -890,9 +961,11 @@ class MeshCalls:
     ``_extend_body`` took.  The extenders that make_sharded_extender
     builds are wrapped too: ``extender`` holds their calls and ms (host
     arrays in and out, so the copies each way included), and ``replay``
-    the inputs of every call with a live lane.  The
-    seeder and extender call these through module attributes, which is
-    what is replaced; no package file changes."""
+    the inputs of every call with a live lane; the seeders that
+    make_sharded_seeder builds keep the inputs of every call in
+    ``seeder_replay`` (the device index by reference).  The seeder and
+    extender call these through module attributes, which is what is
+    replaced; no package file changes."""
 
     def __enter__(self):
         from aligngraph2_tpu_torch.parallel import sharded
@@ -902,8 +975,10 @@ class MeshCalls:
         self.lanes = 0
         self.extender = {"calls": 0, "ms": 0.0}
         self.replay = []
+        self.seeder_replay = []
         self._saved = {n: getattr(sharded, n) for n in MESH_FUNCTIONS}
-        self._saved["make_sharded_extender"] = sharded.make_sharded_extender
+        for n in ("make_sharded_extender", "make_sharded_seeder"):
+            self._saved[n] = getattr(sharded, n)
         for name, fn in self._saved.items():
             setattr(sharded, name, self._wrap(name, fn))
         return self
@@ -922,9 +997,18 @@ class MeshCalls:
             return out
         return call
 
+    def _wrap_seeder(self, seeder):
+        def call(*arrays):
+            self.seeder_replay.append(
+                (seeder, [x.copy() for x in arrays[:3]] + list(arrays[3:])))
+            return seeder(*arrays)
+        return call
+
     def _wrap(self, name, fn):
         if name == "make_sharded_extender":
             return lambda *a, **kw: self._wrap_extender(fn(*a, **kw))
+        if name == "make_sharded_seeder":
+            return lambda *a, **kw: self._wrap_seeder(fn(*a, **kw))
 
         def call(*args, **kw):
             ms, out = synced_ms(fn, *args, **kw)
@@ -938,72 +1022,295 @@ class MeshCalls:
         return call
 
 
-def extender_split(mc) -> dict:
-    """Where an extender call's time goes: the extender calls that
-    MeshCalls kept (all with a live lane), replayed under torch.profiler,
-    card time by kind per call (the two kernels, the wrappers' torch ops: dirs and moves zeroed,
-    fill_centers, the centres gather, and the copies each way), beside the
-    run's ms per whole extender call (host arrays in and out) and per
-    ``_extend_body`` call (device tensors in and out)."""
+def replay_card_ms(replay, kinds) -> tuple:
+    """The calls in ``replay`` ((fn, args) pairs) run again under
+    torch.profiler: (wall ms per call, {kind: card ms per call}), card
+    time by the first of ``kinds`` (name part -> kind) in each event's
+    name, the rest under ``torch_ops``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    kinds = {"dp_adaptive_kernel": "dp_kernel",
-             "tb_adaptive_kernel": "tb_kernel",
-             "Memcpy HtoD": "copies_to_card", "Memcpy DtoH": "copies_to_host"}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for ext, arrays in mc.replay:
-            ext(*arrays)
+        for fn, args in replay:
+            fn(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    n = max(len(mc.replay), 1)
-    device = dict.fromkeys([*kinds.values(), "wrapper_torch_ops"], 0.0)
+    n = max(len(replay), 1)
+    device = dict.fromkeys([*kinds.values(), "torch_ops"], 0.0)
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             kind = next((v for k, v in kinds.items() if k in e.key),
-                        "wrapper_torch_ops")
+                        "torch_ops")
             device[kind] += e.self_device_time_total / 1e3 / n
+    return wall_ms / n, device
+
+
+COPIES = {"Memcpy HtoD": "copies_to_card", "Memcpy DtoH": "copies_to_host"}
+
+
+def extender_split(mc) -> dict:
+    """Where an extender call's time goes: the extender calls that
+    MeshCalls kept (all with a live lane), replayed under torch.profiler,
+    card time by kind per call (the two kernels, the wrappers' torch ops:
+    dirs and moves zeroed, fill_centers, the centres gather, and the
+    copies each way), beside the run's ms per whole extender call (host
+    arrays in and out) and per ``_extend_body`` call (device tensors in
+    and out)."""
+    wall, device = replay_card_ms(mc.replay, {
+        "dp_adaptive_kernel": "dp_kernel", "tb_adaptive_kernel": "tb_kernel",
+        **COPIES})
     body = mc.stats["_extend_body"]
     return {"calls": mc.extender["calls"],
             "call_ms": mc.extender["ms"] / max(mc.extender["calls"], 1),
             "body_ms": body["ms"] / max(body["calls"], 1),
-            "replayed": len(mc.replay), "replay_wall_ms_per_call":
-            wall_ms / n, "replay_card_ms_per_call": device}
+            "replayed": len(mc.replay), "replay_wall_ms_per_call": wall,
+            "replay_card_ms_per_call": device}
 
 
-def select_gate(seed) -> dict:
-    """``_select_read_candidates`` on the card against the CPU at N = 544
-    candidates a read (a 5 Mb target's 34 blocks x 2 strands x K = 8),
-    where its loop replays CUDA graphs (the 1 Mb dataset's N = 96 stays
-    under two chunks and runs eagerly); counts from a small range plant
-    ties.  All three outputs must be equal."""
+def seeder_split(mc) -> dict:
+    """Where a seeder call's time goes: every seeder call of the run
+    replayed under torch.profiler, card time by kind per call (the two
+    kernels, the torch ops: k-mer codes, the sort, the glue; the copies
+    each way), beside the run's ms per ``_seed_body`` call."""
+    wall, device = replay_card_ms(mc.seeder_replay, {
+        "seed_block_kernel": "seed_block_kernel",
+        "select_candidates_kernel": "select_kernel", **COPIES})
+    body = mc.stats["_seed_body"]
+    return {"calls": body["calls"],
+            "body_ms": body["ms"] / max(body["calls"], 1),
+            "replayed": len(mc.seeder_replay),
+            "replay_wall_ms_per_call": wall,
+            "replay_card_ms_per_call": device}
+
+
+def seed_bounds(qc, qv, sc, nbins, T, S, NK):
+    """Least time of seed_block_kernel's function on these inputs, and
+    the kernel's latency model: (bound ms, its kind, latency ms, hits).
+    Bytes: the query codes and flags, the block's codes and positions
+    read once, cnt and diag written.  Operations, the least work: each
+    block's codes into a hash table of (lo, n) and each valid position's
+    probe of each block's table (SEED_HASH_OPS each), SEED_HIT_OPS a hit
+    (this run's, counted here), and one top-T pass over the bins
+    (SEED_BIN_OPS a bin).  Latency, the kernel's algorithm: a thread's
+    positions one after the other, each its table steps in shared
+    memory and SEED_L2_READS dependent block reads."""
     import numpy as np
     import torch
     from aligngraph2_tpu_torch.parallel import sharded
-    rng = np.random.default_rng(seed)
-    B, N = 32, 544
-    arrays = (rng.integers(0, 40, (B, N)).astype(np.int32),
-              rng.choice(np.array([-3, -2, -1, 1, 2, 3], np.int32), N),
-              rng.integers(0, 20000, (B, N)).astype(np.int32))
-    kw = dict(K=8, min_hits=4, alpha=0.5, beta=2.0, bin_w=128, prune=0.81)
-    want = sharded._select_read_candidates(
-        *(torch.from_numpy(x) for x in arrays), **kw)
-    got = sharded._select_read_candidates(
-        *(torch.from_numpy(x).cuda() for x in arrays), **kw)
-    return {"B": B, "N": N, "selected": int(want[0].sum()),
-            "equal": all(torch.equal(w, g.cpu()) for w, g in zip(want, got))}
+    NB, L = sc.shape
+    hits = 0
+    for b in range(NB):
+        lo = torch.searchsorted(sc[b], qc)
+        n = torch.searchsorted(sc[b], qc, right=True) - lo
+        ok = qv & (n > 0) & (n <= SEED_MAX_OCC)
+        hits += int(torch.where(ok, n.clamp(max=SEED_OCC), 0).sum())
+    nbytes = qc.numel() * 5 + sc.numel() * 8 + S * NB * T * 8
+    ops = ((NB * L + int(qv.sum()) * NB) * SEED_HASH_OPS
+           + hits * SEED_HIT_OPS + S * NB * nbins * SEED_BIN_OPS)
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = bytes_bound_ms(nbytes)
+    table = int(np.ceil(np.log2(((L - 1) >> sharded.SEED_SHIFT) + 2)))
+    lat_ms = (-(-NK // SEED_THREADS) * (table * SHARED_STEP_CYCLES
+                                        + SEED_L2_READS * L2_HIT_CYCLES)
+              / SM_CLOCK_HZ * 1e3)
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", lat_ms, hits)
 
 
-def mesh(reads, ctgs, mesh_cpu) -> dict:
+def seed_gate(index, k, reads, ctgs, seed, regs) -> dict:
+    """seed_block_kernel against its plain version on the card, at each
+    SEED_GATE shape, on the block index of the mesh phase (``index``, its
+    k-mer size ``k``): the first S reads of the bucket at NQ 8192 and
+    16384, and S mutated contig pieces of 60-131 kb at NQ 131072; cnt and
+    diag exact.  Prints a line per shape; returns the timings at the
+    first."""
+    import numpy as np
+    import torch
+    from aligngraph2_tpu_torch.io.seqdb import encode_seq
+    from aligngraph2_tpu_torch.ops.kmer import kmer_codes_batch
+    from aligngraph2_tpu_torch.parallel import sharded
+    from tests.synth import mutate
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 3)
+    sc = torch.from_numpy(index.sorted_codes).to(dev)
+    sp = torch.from_numpy(index.sorted_pos).to(dev)
+    NB, L = sc.shape
+    BL = index.block_len
+    timing = {}
+    for S, NQ, bin_w in SEED_GATE:
+        if NQ <= 16384:
+            ids = [r for r in range(len(reads))
+                   if NQ // 2 < reads.size(r) <= NQ][:S]
+            seqs = [reads.get_codes(r) for r in ids]
+        else:
+            seqs = []
+            for s in range(S):
+                src = ctgs.get_str(s % len(ctgs))
+                n = min(int(rng.integers(60000, NQ - 2000)), len(src))
+                at = int(rng.integers(0, len(src) - n + 1))
+                piece = mutate(rng, src[at:at + n], 0.02, 0.01, 0.01)[:NQ]
+                seqs.append(encode_seq(piece))
+        q = np.zeros((S, NQ), np.uint8)
+        lens = np.zeros(S, np.int32)
+        for r, c in enumerate(seqs):
+            q[r, :len(c)] = c
+            lens[r] = len(c)
+        qc, qv = kmer_codes_batch(torch.from_numpy(q).to(dev),
+                                  torch.from_numpy(lens).to(dev), k)
+        nbins = int(np.ceil((BL + NQ) / bin_w)) + 2
+        kw = dict(NQ=NQ, nbins=nbins, bin_w=bin_w, occ=SEED_OCC,
+                  max_occ=SEED_MAX_OCC, top_t=8)
+        plain_ms, want = warm_ms(
+            lambda: sharded._seed_block_candidates_ref(qc, qv, sc, sp, **kw),
+            PLAIN_REPS)
+        got = sharded.seed_block(qc, qv, sc, sp, **kw)
+        bad = [name for name, w, g in zip(("cnt", "diag"), want, got)
+               if not torch.equal(w.contiguous(), g)]
+        ms = cuda_ms(lambda: sharded.seed_block(qc, qv, sc, sp, **kw), REPS)
+        bound, by, lat, hits = seed_bounds(qc, qv, sc, nbins, 8, S,
+                                           qc.shape[1])
+        emit({"phase": "seed_gate", "S": S, "NQ": NQ, "bin_w": bin_w,
+              "blocks": NB, "L": L, "nbins": nbins,
+              "smem_bytes": sharded.seed_smem_bytes(nbins, L),
+              "streams": len(seqs), "hits": hits,
+              "nonzero_candidates": int((got[0] > 0).sum()),
+              "exact": not bad, "mismatch": bad, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+              "latency_model_ms": lat,
+              "regs": regs.get("seed_block_kernel")})
+        if bad or len(seqs) < S:
+            raise SystemExit(f"seed_gate failed at S={S} NQ={NQ} "
+                             f"bin_w={bin_w}: {bad or 'too few reads'}")
+        if not timing:
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "err": 0}
+    return timing
+
+
+def select_inputs(rng, B, N):
+    """cnt, tid, gdiag for B reads of N candidates: counts from [0, 40)
+    (planted ties), six targets on both strands; by row r mod 4: nearby
+    diagonals (heavy dedup, rows 0 and 1), diagonals spread over 2^30 (a
+    kept list of nearly every candidate: row 2), and target 1's
+    diagonals at +-2^31, where the int32 difference wraps (row 3)."""
+    import numpy as np
+    cnt = rng.integers(0, 40, (B, N)).astype(np.int32)
+    tid = rng.choice(np.array([-3, -2, -1, 1, 2, 3], np.int32), N)
+    gdiag = rng.integers(0, 20000, (B, N)).astype(np.int32)
+    gdiag[2::4] = rng.integers(0, 1 << 30, (len(range(2, B, 4)), N))
+    one = np.flatnonzero(tid == 1)
+    half = len(one) // 2
+    for r in range(3, B, 4):
+        gdiag[r, one[:half]] = np.iinfo(np.int32).max - rng.integers(
+            0, 300, half)
+        gdiag[r, one[half:]] = np.iinfo(np.int32).min + rng.integers(
+            0, 300, len(one) - half)
+    return cnt, tid, gdiag
+
+
+def select_bounds(cnt, order_kept, kw):
+    """Least time of select_candidates_kernel's function on these inputs,
+    and the kernel's latency model: (bound ms, its kind, latency ms,
+    largest kept list).  ``order_kept``: (B, N) bool, the dedup's kept
+    flags in the stable count order (the plain version's, before the
+    prune).  Bytes: cnt, gdiag and tid read once, sel, idx and score
+    written.  Operations, the least work: SELECT_OPS a candidate, and a
+    table of the kept entries by (tid, gdiag // (bin_w + 1)), which holds
+    at most one kept entry a bucket and a tid, so a candidate past
+    min_hits probes four buckets (its own, the two beside it, and the
+    one 2^31 away, since |INT_MIN| stays INT_MIN) and a kept one adds
+    itself (SELECT_PROBE_OPS each).  Latency, the kernel's algorithm, whose
+    steps scan the kept list: the slowest read's steps
+    (SELECT_STEP_CYCLES a candidate past the ballot, SELECT_SCAN_CYCLES
+    each 32 kept entries it scans)."""
+    import torch
+    B, N = cnt.shape
+    valid = torch.sort(cnt, dim=1, descending=True, stable=True).values \
+        >= kw["min_hits"]
+    nbytes = B * N * 8 + N * 4 + B * kw["K"] * 9
+    ops = (B * N * SELECT_OPS + (4 * int(valid.sum())
+                                 + int(order_kept.sum())) * SELECT_PROBE_OPS)
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = bytes_bound_ms(nbytes)
+    before = order_kept.long().cumsum(1) - order_kept.long()
+    scanned = torch.where(valid, before, 0)
+    cycles = (valid.sum(1) * SELECT_STEP_CYCLES
+              + ((scanned + 31) // 32).sum(1) * SELECT_SCAN_CYCLES)
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes",
+            int(cycles.max()) / SM_CLOCK_HZ * 1e3,
+            int(order_kept.sum(1).max()))
+
+
+def select_gate(seed, kw, regs) -> dict:
+    """select_candidates_kernel against its plain version on the card at
+    B = SELECT_GATE_B and each N of SELECT_GATE_N, on select_inputs, with
+    the mesh aligner's K, min_hits, alpha, beta, bin_w and prune (``kw``):
+    sel, idx and score exact; at the last N a kept list must pass the
+    kernel's shared entries (SELECT_SHARED_ENTRIES), so the spill is
+    checked too.  Prints a line per N; returns the timings at the
+    first."""
+    import numpy as np
+    import torch
+    from aligngraph2_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(seed + 4)
+    timing = {}
+    for N in SELECT_GATE_N:
+        arrays = tuple(torch.from_numpy(x).cuda()
+                       for x in select_inputs(rng, SELECT_GATE_B, N))
+        plain_ms, want = warm_ms(
+            lambda: sharded._select_read_candidates_ref(*arrays, **kw),
+            PLAIN_REPS)
+        got = sharded.select_candidates(*arrays, **kw)
+        bad = [name for name, w, g in zip(("sel", "idx", "score"), want, got)
+               if not torch.equal(w, g)]
+        ms = cuda_ms(lambda: sharded.select_candidates(*arrays, **kw), REPS)
+        # every kept entry before the prune, in order: the dedup's work
+        cnt = arrays[0]
+        every = sharded._select_read_candidates_ref(
+            *arrays, **dict(kw, K=N, prune=0.0))
+        order = torch.sort(-cnt, dim=1, stable=True).indices
+        rank = torch.empty_like(order)
+        rank.scatter_(1, order, torch.arange(N, device=cnt.device).expand(
+            SELECT_GATE_B, N).contiguous())
+        at = torch.where(every[0], rank.gather(1, every[1].long()), N)
+        kept = torch.zeros((SELECT_GATE_B, N + 1), dtype=torch.bool,
+                           device=cnt.device).scatter_(1, at, True)[:, :N]
+        bound, by, lat, most = select_bounds(cnt, kept, kw)
+        spilled = max(most - sharded.SELECT_SHARED_ENTRIES, 0)
+        emit({"phase": "select_gate", "B": SELECT_GATE_B, "N": N,
+              "selected": int(want[0].sum()), "most_kept": most,
+              "spilled": spilled, "exact": not bad, "mismatch": bad,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": by, "latency_model_ms": lat,
+              "regs": regs.get("select_candidates_kernel")})
+        if bad:
+            raise SystemExit(f"select_gate failed at N={N}: {bad}")
+        if N == SELECT_GATE_N[-1] and not spilled:
+            raise SystemExit(f"select_gate: no kept list passed "
+                             f"{sharded.SELECT_SHARED_ENTRIES} shared "
+                             f"entries at N = {N}")
+        if not timing:
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "err": 0}
+    return timing
+
+
+def mesh(args, regs, reads, ctgs, mesh_cpu) -> tuple:
     """Read -> contig for every read of the stage dataset through the mesh
     path on a 1x1 mesh of the card, which must launch each adaptive
-    kernel, no static-band kernel and no plain version on the card; the
-    CPU's records of the first MESH_CPU_READS (the future ``mesh_cpu`` of
-    :func:`mesh_on_cpu`) must equal the card's.  Returns the adaptive
-    kernels' launches."""
+    kernel and each seeder kernel, no static-band kernel and no plain
+    version on the card; the CPU's records of the first MESH_CPU_READS
+    (the future ``mesh_cpu`` of :func:`mesh_on_cpu`) must equal the
+    card's.  Then the seeder's kernels against their plain versions
+    (:func:`seed_gate`, :func:`select_gate`) on the run's block index and
+    settings.  Returns the adaptive kernels' launches, the seeder
+    kernels' and the two gates' timings."""
     import torch
     from aligngraph2_tpu_torch.align.aligner import LongReadAligner
     from aligngraph2_tpu_torch.align.records import AlignmentSet
@@ -1023,6 +1330,7 @@ def mesh(reads, ctgs, mesh_cpu) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = adaptive_launches()
+    s_launches = seed_launches()
     static = bs.banded_dp_static.launches + bs.traceback_static.launches
     idx = al._block_index
     index_bytes = sum(t.numel() * t.element_size()
@@ -1042,7 +1350,7 @@ def mesh(reads, ctgs, mesh_cpu) -> dict:
                            st["bytes"] / calls), "bound_by": "bytes"}
     aligned = len({a.query_name for a in alns})
     split = extender_split(mc)
-    gate_n = select_gate(len(reads))
+    s_split = seeder_split(mc)
     emit({"phase": "mesh", "mesh": al.mesh.shape,
           "device": str(al.mesh.devices[0, 0]), "reads": n,
           "read_bp": int(sum(reads.size(r) for r in range(n))),
@@ -1052,32 +1360,36 @@ def mesh(reads, ctgs, mesh_cpu) -> dict:
           "index_device_bytes": index_bytes, "lanes": mc.lanes,
           "alignments": len(alns), "aligned_reads": aligned,
           "static_launches": static, "adaptive_launches": launches,
+          "seeder_launches": s_launches,
           "plain_calls_on_card": rc.cuda_calls,
           "seeder_calls": mc.stats["_seed_body"]["calls"],
           "seeder_ms_per_call": by_fn["_seed_body"]["ms_per_call"],
+          "seeder_split": s_split,
           "extender_calls": mc.stats["_extend_body"]["calls"],
           "extender_ms_per_call": by_fn["_extend_body"]["ms_per_call"],
           "extender_split": split,
           "by_function": by_fn, "cpu_reads": len(few),
           "cpu_ref_text_equal": card_text == cpu_text,
-          "cpu_alignments": card_text.count("\n") // 3, "cpu_s": cpu_s,
-          "select_gate": gate_n})
+          "cpu_alignments": card_text.count("\n") // 3, "cpu_s": cpu_s})
     if card_text != cpu_text or not card_text:
         raise SystemExit("mesh: the card's and the CPU's .ref text differ "
                          "on the first reads, or no alignment")
     if static:
         raise SystemExit("mesh: the mesh path launched a static-band kernel")
-    if not all(launches.values()) or rc.cuda_calls:
-        raise SystemExit(f"mesh: an adaptive kernel never ran ({launches}) "
-                         f"or a plain version ran on the card "
-                         f"({rc.cuda_calls} calls)")
-    if not gate_n["equal"]:
-        raise SystemExit("mesh: _select_read_candidates differs on the card "
-                         "at N = 544")
+    if not all({**launches, **s_launches}.values()) or rc.cuda_calls:
+        raise SystemExit(f"mesh: a kernel never ran ({launches}, "
+                         f"{s_launches}) or a plain version ran on the "
+                         f"card ({rc.cuda_calls} calls)")
     if aligned < 0.8 * n:
         raise SystemExit("mesh: fewer than 80% of reads aligned")
     check_records(alns, reads, ctgs)
-    return launches
+    cfg = al.cfg
+    seed_t = seed_gate(idx, cfg.seed_k, reads, ctgs, args.seed, regs)
+    select_t = select_gate(args.seed, dict(
+        K=cfg.max_candidates, min_hits=cfg.min_block_hits, alpha=cfg.alpha,
+        beta=cfg.beta, bin_w=max(cfg.band_width // 2, 32),
+        prune=cfg.prune_ratio), regs)
+    return launches, s_launches, seed_t, select_t
 
 
 def probe() -> dict:
@@ -1583,8 +1895,9 @@ def main() -> int:
     with concurrent.futures.ProcessPoolExecutor(
             2, mp_context=multiprocessing.get_context("spawn")) as pool:
         on_cpu, mesh_cpu, reads, ctgs = slice_run(args, pool)
-        a_launches = {"long_read": long_read(args, on_cpu),
-                      "mesh": mesh(reads, ctgs, mesh_cpu)}
+        a_launches = {"long_read": long_read(args, on_cpu)}
+        a_launches["mesh"], s_launches, seed_t, select_t = mesh(
+            args, built["regs"], reads, ctgs, mesh_cpu)
     del reads, ctgs
     launches, calls = pipeline(args)
     device_paths(calls)
@@ -1621,6 +1934,20 @@ def main() -> int:
             "max_abs_err": float(a_timing["err"][key]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None})
+    # the mesh seeder's: launches in the mesh phase; times at the seed
+    # gate's S=32 x 8192 and the select gate's B=32, N=96
+    for name, t, replaces in (
+            ("seed_block", seed_t,
+             "aligngraph2_tpu/parallel/sharded.py:126"),
+            ("select_candidates", select_t,
+             "aligngraph2_tpu/parallel/sharded.py:171")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "aligngraph2_tpu_torch/csrc/seed_mesh.cu",
+            "replaces": replaces, "launches": s_launches[name],
+            "max_abs_err": float(t["err"]), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
