@@ -6,96 +6,125 @@
 // and called through the plain C functions at the end of this file.  Each
 // launches on the stream it is given, allocates nothing and returns
 // cudaGetLastError(); the wrappers in parallel/sharded.py allocate the
-// outputs and raise on a nonzero code.  parallel/sharded.py also holds the
-// plain torch versions (_seed_block_candidates_ref,
+// outputs and scratch and raise on a nonzero code.  parallel/sharded.py
+// also holds the plain torch versions (_seed_reads_ref, which is
+// kmer_codes_batch and _seed_block_candidates_ref a strand, and
 // _select_read_candidates_ref), which define the semantics.  Integer sums
 // wrap as JAX's int32 sums do: they are taken in unsigned arithmetic.
 //
-// seed_block_kernel replaces _seed_block_candidates of
-// aligngraph2_tpu/parallel/sharded.py.  One block of kSeedThreads threads
-// per (index block, read stream), grid (NB, S).  For each valid query
-// position p, the thread finds lo = the first index of sorted_codes[b] not
-// below the code (searchsorted, side left) and n = the run of equal codes
-// from lo; a position with n = 0 or n > max_occ is dropped (JAX's spill
-// slot).  Its first min(n, occ) occurrences o add 1 and their diagonal
-// sorted_pos[b][min(lo + o, L - 1)] - p + NQ to bin
-// clamp(floor(diag / bin_w), 0, nbins - 1) of hist and dsum.  Then the
-// bins are smoothed, sm[x] = h[x] + h[x + 1] (0 past the end), and T
-// rounds of a block-wide argmax on the key sm_h * nbins + (nbins - 1 - x)
-// pick lax.top_k's bins: the larger count first, the lower bin among
-// equal counts, so zero bins come last in ascending order.  Each winner
-// writes cnt = sm_h and diag = floor(sm_d / max(cnt, 1)) - NQ (0 where
-// cnt <= 0) straight into the (S, NB, T) layout.
+// seed_block_kernel replaces kmer_codes_batch followed by
+// _seed_block_candidates of aligngraph2_tpu/parallel/sharded.py, for both
+// strands of a batch of reads in one launch.  Stream s = 2 * read +
+// strand reads q_fwd or q_rev; its position p (p < len - (k - 1)) has the
+// code OR_j byte[p + j] << 2 (k - 1 - j) (kmer_codes_batch's shift-or,
+// exact for any byte).  Per (stream, index block): lo = the first index
+// of sorted_codes[b] not below the code, n = the run of equal codes from
+// lo; a position with n = 0 or n > max_occ is dropped (JAX's spill slot);
+// its first min(n, occ) occurrences o add 1 and their diagonal
+// sorted_pos[b][lo + o] - p + NQ to bin clamp(floor(diag / bin_w), 0,
+// nbins - 1) of hist and dsum.  The smoothed bins sm[x] = h[x] + h[x + 1]
+// (0 past the end) are ranked as lax.top_k ranks them, by the key sm_h *
+// nbins + (nbins - 1 - x): the larger count first, the lower bin among
+// equal counts, zero bins last in ascending order.  The T best give cnt =
+// sm_h and diag = floor(sm_d / cnt) - NQ (0 where cnt <= 0), written
+// straight into the (B, 2, NB, T) layout of the seeder.
 //
-// Bound on an H100: latency.  The bytes (the block index, ~1.6 MB a block,
-// and the query codes) are read in microseconds and sit in L2; the
-// operations are a few tens of millions.  What a call costs is each
-// thread's chain: its NK / kSeedThreads positions, one after the other,
-// each a binary search over ~200,000 codes, ~18 dependent reads.  The
-// design keeps that chain short and everything else off it:
-//   * every 64th code of the block (12.5 KB at L = 200,052) is copied
-//     into shared memory first; the search runs there down to a window
-//     of 63 codes, and only the last ~6 steps read the block, within two
-//     or three cache lines, so about three dependent L2 reads a
-//     position, not 18;
-//   * a position whose code is not at lo (about 98% of them on the mesh
-//     phase's reads) stops there; the run length is a second binary
-//     search over at most max_occ + 1 entries from lo (n is exact up to
-//     max_occ, max_occ + 1 past it, which is all the rule reads);
-//   * hist and dsum live in shared memory (dynamic, above 48 KB when
-//     nbins is large: bin_w = 32 at NQ = 131072 takes 83 KB); the
-//     scatter is a shared atomicAdd, whose int32 sum wraps and is the
-//     same in any order;
-//   * the smoothing is read on the fly by the argmax rounds (no second
-//     pass, no second pair of arrays), and a winner is marked in a shared
-//     bit set; T rounds of a warp shuffle and one shared exchange each.
+// Bound on an H100: latency and the card's fill.  The bytes (a block's
+// codes and positions, ~1.6 MB, and the reads) are few against the card's
+// rate; what a launch costs is each thread's chain of positions, each a
+// search of ~200,000 codes, times the waves of blocks.  The design:
+//   * the search starts from a directory of each block's codes, made once
+//     an index (sharded.seed_directory, (NB, 2^16 + 3) int32): entry h + 1
+//     is the first index whose code is not below h << dsh, dsh = 2k - 16,
+//     so a code's lower bound lies between entries h + 1 and h + 2 of its
+//     h = code >> dsh, a range of ~3 codes at the mesh's blocks (one
+//     sector).  A position costs two dependent reads of L2 (the
+//     directory's pair, then the range), where a binary search over the
+//     block took ~18; a position whose code is not at lo (~98% of them)
+//     stops there, and a hit's run ends inside the same range.  Nothing
+//     of the block is copied into shared memory, which leaves the SM's
+//     L1 to cache the block;
+//   * the grid is (C x S, NB), x fastest: a cluster of C blocks
+//     (distributed shared memory, sm_90) shares an (index block, stream)
+//     and splits its valid positions into C slices where the (block,
+//     stream) pairs are too few to fill the card (the 131072 bucket's
+//     6 x 16); every block's fixed cost is the zeroing of its bins, so
+//     600 index blocks x 64 streams take one block a pair, the blocks of
+//     one index block side by side in the launch order, its codes in L2
+//     while they run.  The wrapper picks C (sharded.seed_grid);
+//   * the histogram of a stream lives in the cluster's first block: the
+//     others add to it through distributed shared memory.  The lanes of a
+//     warp whose hits fall in one bin (a read's true hits share a
+//     diagonal) add once: __match_any_sync on the bin, __reduce_add_sync
+//     of the diagonals, one atomicAdd a bin.  The bin is a multiply by a
+//     precomputed reciprocal of bin_w (exact for every 32-bit dividend);
+//   * the first add to a bin appends it to a list of touched bins, so the
+//     top-T rounds scan only the touched bins and the bins just below
+//     them (the only ones whose smoothed count is not zero), each round
+//     one barrier and the largest key below the last winner.  Nothing is
+//     O(nbins) a stream but the first zeroing.
 //
 // select_candidates_kernel replaces _select_read_candidates of
 // aligngraph2_tpu/parallel/sharded.py.  One warp per read.  The wrapper
-// passes the stable cnt-descending order (torch.sort); the kernel walks
-// i = 0 .. N - 1 in it and keeps candidate order[i] iff cnt >= min_hits
-// and no kept entry has the same tid and |gdiag_j - gdiag_i| <= bin_w (an
-// int32 difference that wraps; |INT_MIN| stays INT_MIN, as jnp.abs and
-// torch leave it).  Then mean = float(sum of kept counts, exact in
-// integers) / float(max(n_kept, 1)), score = min(max(cnt, alpha * mean),
-// beta * mean) in float32, the prune (when asked) keeps score >= prune *
-// best, best the largest kept score (0 if an entry was not kept), and the
-// first K kept entries in the order give (sel, idx = order[i], score);
-// unused slots are (0, 0, 0.0).
+// passes the stable cnt-descending order (one torch.sort); the kernel
+// walks it and keeps candidate i iff cnt >= min_hits and no kept entry
+// has the same tid and |gdiag_j - gdiag_i| <= bin_w (an int32 difference
+// that wraps; |INT_MIN| stays INT_MIN, as jnp.abs and torch leave it).
+// Then mean = float(sum of kept counts, exact in integers) /
+// float(max(n_kept, 1)), score = min(max(cnt, alpha * mean), beta * mean)
+// in float32, the prune (when asked) keeps score >= prune * best, best
+// the largest kept score (0 if an entry was not kept), and the first K
+// kept entries in the order give (sel, idx = order[i], score); unused
+// slots are (0, 0, 0.0).
 //
-// Bound on an H100: latency, N dependent steps.  The bytes are a few kB
-// a read.  Here a step scans the kept list, O(N * kept) in all; the
-// function needs less (a table of the kept entries by tid and gdiag /
-// (bin_w + 1) answers a step in four probes), which shows only on lists
-// of thousands.  The design shortens a step:
-//   * what a step reads of the kept list, (tid, gdiag), is in shared
-//     memory, up to kSelCap entries (224 KB), and past that in a global
-//     spill the wrapper allocates; (order index, count), read once at
-//     the end, go to a global scratch.  Entry j is written and read only
-//     by lane j mod 32, so the list needs no barrier;
-//   * the 32 lanes scan the list in chunks of 256 entries, eight a lane,
-//     with no branch: both stores are whole chunks long, so the eight
-//     loads are issued together and the entries past the list are
-//     masked by index; a vote (__any_sync) after each chunk stops a
-//     candidate near an early entry;
-//   * the candidates come 32 at a time, a lane each: the order and the
-//     three gathers of the next batch are issued before the current
-//     batch is walked, and a ballot of cnt >= min_hits skips the
-//     candidates that cannot be kept without a step.
+// Bound on an H100: latency, a read's walk.  The bytes are a few kB a
+// read.  The design makes each candidate O(1) and a batch of 32 one step:
+//   * the kept entries are a hash table keyed by (tid, bucket), bucket =
+//     (uint32)gdiag / (bin_w + 1): a bucket holds at most one kept entry of
+//     a tid, since two entries in it lie within bin_w;
+//   * a candidate u = (uint32)gdiag is near a kept v iff v - u (mod 2^32)
+//     lies in [-bin_w, bin_w] or is 2^31 (|INT_MIN| = INT_MIN).  The arc
+//     [u - bin_w, u + bin_w] of 2 bin_w + 1 values meets at most three
+//     buckets, those of its two ends and of u, except where it wraps past
+//     2^32: the circle's last bucket is short (2^32 mod (bin_w + 1)
+//     values), and the arc can cross it whole.  So a candidate probes five
+//     buckets: both ends, its own, the last one, and u + 2^31's, and tests
+//     the entry it finds in each exactly;
+//   * 32 candidates a lane each probe at once, the first slots of their
+//     five chains (open addressing) read together; the batch's own order
+//     is then settled with ballots: a survivor near no earlier survivor
+//     is kept outright, the few that are near one are decided in order
+//     against the kept mask (a near matrix over the earlier lanes of the
+//     same tid, __match_any_sync and a shuffle each), and the
+//     kept ones store themselves at the gap their own bucket's chain
+//     ended at (by compare-and-swap from there where two of the batch
+//     found the same gap; no two kept entries share a key);
+//   * the table (at least twice the candidates, a power of two) is in
+//     shared memory up to kSelSharedSlots slots (128 KB, N <= 8192), past
+//     that in a global scratch the wrapper allocates (read through L2,
+//     a read's table 512 KB at N = 32,768).  The one key the table cannot
+//     store, (tid, gdiag) = (-1, -1), all ones like an empty slot, is
+//     kept in a flag;
+//   * (order index, count) of each kept entry go to a global scratch in
+//     order, read by the mean, the prune and the emission.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kSeedThreads = 512;
-constexpr int kSeedShift = 6;   // the search table: every 64th code
-constexpr int kScan = 8;        // kept entries a lane reads between votes
-constexpr int kChunk = 32 * kScan;
-constexpr int kSelCap = 112 * kChunk;   // kept entries a read may hold in
-                                        // shared memory (224 KB)
+constexpr int kDirBits = 16;        // the directory: 2^16 code ranges
+constexpr int kDir = 1 << kDirBits;
+constexpr int kMaxCluster = 8;
+constexpr int kSelSharedSlots = 1 << 14;   // table slots a read may hold in
+                                           // shared memory (128 KB)
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kEmpty = ~0ull;
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -121,156 +150,234 @@ __device__ __forceinline__ int lower_bound(const int32_t* a, int n,
   return lo;
 }
 
+// the first index of a[0 .. n) whose value is above code (n if none)
+__device__ __forceinline__ int upper_bound(const int32_t* a, int n,
+                                           int code) {
+  int lo = 0;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (a[lo + half] <= code) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo;
+}
+
 // floor(a / b) for b > 0 (C's / truncates toward zero)
 __device__ __forceinline__ int floor_div(int a, int b) {
   const int q = a / b;
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-__global__ void __launch_bounds__(kSeedThreads)
-seed_block_kernel(const int32_t* __restrict__ q_codes,
-                  const uint8_t* __restrict__ q_valid,
-                  const int32_t* __restrict__ sorted_codes,
-                  const int32_t* __restrict__ sorted_pos, int NK, int NB,
-                  int L, int NQ, int nbins, int bin_w, int occ, int max_occ,
-                  int T, int32_t* __restrict__ cnt_out,
-                  int32_t* __restrict__ diag_out) {
-  extern __shared__ int32_t smem[];
-  int32_t* hist = smem;
-  int32_t* dsum = smem + nbins;
-  unsigned* taken = reinterpret_cast<unsigned*>(dsum + nbins);
-  int32_t* tab = reinterpret_cast<int32_t*>(taken + ((nbins + 31) >> 5));
-  __shared__ long long red[kSeedThreads / 32];
+// n / d for every 32-bit n by a multiply (Granlund and Montgomery 1994,
+// figure 4.1): l = ceil(log2 d), m = floor(2^32 (2^l - d) / d) + 1
+struct Div {
+  unsigned m;
+  int s1, s2;
+};
 
-  const int blk = blockIdx.x, s = blockIdx.y;
+Div make_div(unsigned d) {
+  int l = 0;
+  while ((1ull << l) < d) ++l;
+  Div v;
+  v.m = (unsigned)(((1ull << 32) * ((1ull << l) - d)) / d + 1);
+  v.s1 = l < 1 ? l : 1;
+  v.s2 = l > 1 ? l - 1 : 0;
+  return v;
+}
+
+__device__ __forceinline__ unsigned udiv(unsigned n, Div d) {
+  const unsigned t = __umulhi(d.m, n);
+  return (t + ((n - t) >> d.s1)) >> d.s2;
+}
+
+__global__ void __launch_bounds__(kSeedThreads)
+seed_block_kernel(const uint8_t* __restrict__ q_fwd,
+                  const uint8_t* __restrict__ q_rev,
+                  const int32_t* __restrict__ lens,
+                  const int32_t* __restrict__ sorted_codes,
+                  const int32_t* __restrict__ sorted_pos,
+                  const int32_t* __restrict__ seed_dir, int NQ, int k,
+                  int NB, int L, int nbins, Div bin_div, int occ,
+                  int max_occ, int T, int C, int dsh,
+                  int32_t* __restrict__ cnt_out,
+                  int32_t* __restrict__ diag_out) {
+  extern __shared__ int32_t smem[];   // hist, dsum, touched: nbins each
+  __shared__ int n_touched;
+  __shared__ long long red[2][kSeedThreads / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();   // the positions' slice
+  const bool lead = rank == 0;                  // holds the histogram
+  const int s = blockIdx.x / C, blk = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int x = tid; x < nbins; x += kSeedThreads) {
-    hist[x] = 0;
-    dsum[x] = 0;
-  }
-  for (int x = tid; x < (nbins + 31) >> 5; x += kSeedThreads) taken[x] = 0;
+  int32_t* hist = smem;
+  int32_t* dsum = hist + nbins;
+  int32_t* touched = dsum + nbins;
   const int32_t* sc = sorted_codes + (size_t)blk * L;
   const int32_t* sp = sorted_pos + (size_t)blk * L;
-  const int ns = ((L - 1) >> kSeedShift) + 1;   // tab[i] = sc[i << 6]
-  for (int i = tid; i < ns; i += kSeedThreads)
-    tab[i] = __ldg(sc + (i << kSeedShift));
-  __syncthreads();
+  const int32_t* dir = seed_dir + (size_t)blk * (kDir + 3);
 
-  const int32_t* qc = q_codes + (size_t)s * NK;
-  const uint8_t* qv = q_valid + (size_t)s * NK;
-  for (int p = tid; p < NK; p += kSeedThreads) {
-    if (!qv[p]) continue;
-    const int code = qc[p];
-    // sc[(i0 - 1) << 6] < code <= sc[i0 << 6], so lo lies in
-    // ((i0 - 1) << 6, min(i0 << 6, L)]
-    const int i0 = lower_bound(tab, ns, code);
-    const int w0 = i0 ? ((i0 - 1) << kSeedShift) + 1 : 0;
-    const int w1 = min(i0 << kSeedShift, L);
-    const int lo = w0 + lower_bound(sc + w0, w1 - w0, code);
-    if (lo == L || __ldg(sc + lo) != code) continue;   // n = 0
-    int hi = lo;
-    for (int len = min(L - lo, max_occ + 1); len > 0;) {   // sc[hi] > code
-      const int half = len >> 1;
-      if (__ldg(sc + hi + half) <= code) {
-        hi += half + 1;
-        len -= half + 1;
-      } else {
-        len = half;
+  if (lead) {
+    for (int x = tid; x < nbins; x += kSeedThreads) {
+      hist[x] = 0;
+      dsum[x] = 0;
+    }
+    if (tid == 0) n_touched = 0;
+  }
+  cluster.sync();   // the zeroed bins
+  int32_t* hist_r = cluster.map_shared_rank(hist, 0);
+  int32_t* dsum_r = cluster.map_shared_rank(dsum, 0);
+  int32_t* touched_r = cluster.map_shared_rank(touched, 0);
+  int* n_touched_r = cluster.map_shared_rank(&n_touched, 0);
+  const int b = s >> 1;
+  const uint8_t* q = ((s & 1) ? q_rev : q_fwd) + (size_t)b * NQ;
+  // the valid positions, p < min(NQ - k + 1, len - (k - 1)), in C slices
+  const int n_valid = max(min(NQ, __ldg(lens + b)) - (k - 1), 0);
+  const int per = (n_valid + C - 1) / C;
+  const int p_lo = rank * per;
+  const int nv = min(n_valid, p_lo + per);
+  for (int base = p_lo; base < nv; base += kSeedThreads) {
+    const int p = base + tid;
+    int m = 0, lo = 0;
+    if (p < nv) {
+      unsigned code = 0;
+      for (int j = 0; j < k; ++j) code = (code << 2) | __ldg(q + p + j);
+      const int c = (int)code;
+      // sc[dir[h + 1] - 1] < h << dsh <= c < (h + 1) << dsh <=
+      // sc[dir[h + 2]], so lo and the run's end lie in [dir[h + 1],
+      // dir[h + 2]]
+      const int h = min(max(c >> dsh, -1), kDir);
+      const int a = __ldg(dir + h + 1), e = __ldg(dir + h + 2);
+      lo = a + lower_bound(sc + a, e - a, c);
+      if (lo < e && __ldg(sc + lo) == c) {
+        const int n = upper_bound(sc + lo, e - lo, c);
+        m = n <= max_occ ? min(n, occ) : 0;
       }
     }
-    const int n = hi - lo;
-    if (n == 0 || n > max_occ) continue;
-    const int m = min(n, occ);
-    for (int o = 0; o < m; ++o) {
-      const int tpos = __ldg(sp + min(lo + o, L - 1));
-      const int diag = wadd(wsub(tpos, p), NQ);
-      const int x = min(max(floor_div(diag, bin_w), 0), nbins - 1);
-      atomicAdd(hist + x, 1);
-      atomicAdd(dsum + x, diag);
+    for (int o = 0; __any_sync(kFull, o < m); ++o) {
+      const bool hit = o < m;
+      unsigned x = 0;
+      int diag = 0;
+      if (hit) {
+        diag = wadd(wsub(__ldg(sp + lo + o), p), NQ);
+        x = diag < 0 ? 0u : min(udiv((unsigned)diag, bin_div),
+                                (unsigned)(nbins - 1));
+      }
+      const unsigned hits = __ballot_sync(kFull, hit);
+      if (hit) {
+        const unsigned same = __match_any_sync(hits, x);
+        const unsigned dsum_add = __reduce_add_sync(same, (unsigned)diag);
+        if (lane == __ffs(same) - 1) {
+          if (atomicAdd(hist_r + x, __popc(same)) == 0)
+            touched_r[atomicAdd(n_touched_r, 1)] = (int)x;
+          atomicAdd(dsum_r + x, (int)dsum_add);
+        }
+      }
     }
   }
-  __syncthreads();
+  cluster.sync();   // the stream's hits are in the leader's bins
+  if (!lead) return;
 
+  const int nt = n_touched;
+  const size_t out = ((size_t)s * NB + blk) * T;
+  long long last = LLONG_MAX;   // the previous round's winning key
   for (int t = 0; t < T; ++t) {
-    long long best = LLONG_MIN;
-    for (int x = tid; x < nbins; x += kSeedThreads) {
-      if ((taken[x >> 5] >> (x & 31)) & 1u) continue;
-      const int h = wadd(hist[x], x + 1 < nbins ? hist[x + 1] : 0);
-      best = max(best, (long long)h * nbins + (nbins - 1 - x));
+    long long best = -1;
+    for (int i = tid; i < nt; i += kSeedThreads) {
+      const int x = touched[i];
+      const int h0 = hist[x];
+      long long key = (long long)(h0 + (x + 1 < nbins ? hist[x + 1] : 0))
+                      * nbins + (nbins - 1 - x);
+      if (key < last) best = max(best, key);
+      if (x > 0 && hist[x - 1] == 0) {   // bin x - 1, not touched
+        key = (long long)h0 * nbins + (nbins - x);
+        if (key < last) best = max(best, key);
+      }
     }
 #pragma unroll
     for (int off = 16; off; off >>= 1)
       best = max(best, __shfl_xor_sync(kFull, best, off));
-    if (lane == 0) red[warp] = best;
+    if (lane == 0) red[t & 1][warp] = best;
     __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < kSeedThreads / 32; ++w) best = max(best, red[w]);
-      long long r = best % nbins;   // the key's tie part, as a floor mod
-      if (r < 0) r += nbins;
-      const int x = nbins - 1 - (int)r;
-      const int h = wadd(hist[x], x + 1 < nbins ? hist[x + 1] : 0);
-      const int d = wadd(dsum[x], x + 1 < nbins ? dsum[x + 1] : 0);
-      const size_t o = ((size_t)s * NB + blk) * T + t;
-      cnt_out[o] = h;
-      diag_out[o] = h > 0 ? wsub(floor_div(d, h), NQ) : 0;
-      taken[x >> 5] |= 1u << (x & 31);
+#pragma unroll
+    for (int w = 0; w < kSeedThreads / 32; ++w)
+      best = max(best, red[t & 1][w]);
+    if (best < 0) {   // no bin left with a count: zeros, as top_k's
+      for (int r = t + tid; r < T; r += kSeedThreads) {
+        cnt_out[out + r] = 0;
+        diag_out[out + r] = 0;
+      }
+      return;
     }
-    __syncthreads();
+    if (tid == 0) {
+      const int x = nbins - 1 - (int)(best % nbins);
+      const int h = hist[x] + (x + 1 < nbins ? hist[x + 1] : 0);
+      const int d = wadd(dsum[x], x + 1 < nbins ? dsum[x + 1] : 0);
+      cnt_out[out + t] = h;
+      diag_out[out + t] = wsub(floor_div(d, h), NQ);
+    }
+    last = best;
   }
 }
 
-// |a - b| in int32 with wrap; |INT_MIN| stays INT_MIN
-__device__ __forceinline__ int abs_diff(int a, int b) {
-  const int d = wsub(a, b);
-  return d < 0 ? (int)(0u - (unsigned)d) : d;
+// whether a kept gdiag gj is within bin_w of gi: the int32 difference
+// wraps and |INT_MIN| stays INT_MIN
+__device__ __forceinline__ bool near(int gj, int gi, int bin_w) {
+  const int d = wsub(gj, gi);
+  return d == INT_MIN || (unsigned)d + (unsigned)bin_w <= 2u * bin_w;
 }
 
-// the spill's entries a read: those past kSelCap, in whole chunks
-__host__ __device__ __forceinline__ int spill_entries(int N) {
-  return N > kSelCap ? (N - kSelCap + kChunk - 1) / kChunk * kChunk : 0;
+__device__ __forceinline__ unsigned long long pack(int t, int g) {
+  return ((unsigned long long)(unsigned)t << 32) | (unsigned)g;
 }
 
-// Whether an entry of list[0 .. n) (entry j read by lane j mod 32) has
-// target ti and a diagonal within bin_w of gi; the same on every lane.
-// The list's store holds whole chunks: entries past n are read, not used.
-
-__device__ __forceinline__ bool near_any(const int2* list, int n, int ti,
-                                         int gi, int bin_w, int lane) {
-  for (int j0 = 0; j0 < n; j0 += kChunk) {
-    int2 e[kScan];
-#pragma unroll
-    for (int u = 0; u < kScan; ++u) e[u] = list[j0 + 32 * u + lane];
-    bool near = false;
-#pragma unroll
-    for (int u = 0; u < kScan; ++u)
-      near |= (j0 + 32 * u + lane < n) & (e[u].x == ti) &
-              (abs_diff(e[u].y, gi) <= bin_w);
-    if (__any_sync(kFull, near)) return true;
-  }
-  return false;
+__device__ __forceinline__ unsigned slot_hash(int t, unsigned bucket) {
+  unsigned h = (unsigned)t * 0x9e3779b1u ^ (bucket + 0x7f4a7c15u) * 0x85ebca77u;
+  h ^= h >> 15;
+  h *= 0x2c1b3c6du;
+  return h ^ (h >> 13);
 }
 
+// the table lives in shared memory, or in global memory read past L1 (the
+// warp's own stores and compare-and-swaps land in L2)
+template <bool kShared>
+__device__ __forceinline__ unsigned long long slot(
+    const unsigned long long* table, unsigned i) {
+  return kShared ? table[i] : __ldcg(table + i);
+}
+
+template <bool kShared>
 __global__ void __launch_bounds__(32)
 select_candidates_kernel(const int32_t* __restrict__ cnt,
                          const int32_t* __restrict__ tid,
                          const int32_t* __restrict__ gdiag,
                          const int64_t* __restrict__ order, int N,
                          int tid_stride, int K, int min_hits, float alpha,
-                         float beta, int bin_w, int do_prune, float prune,
-                         int2* __restrict__ scratch,
+                         float beta, int bin_w, Div w, int do_prune,
+                         float prune, int slots,
+                         unsigned long long* __restrict__ scratch,
                          uint8_t* __restrict__ sel,
                          int32_t* __restrict__ idx_out,
                          float* __restrict__ score_out) {
-  extern __shared__ int2 kept_s[];   // (tid, gdiag) of entries < kSelCap
+  extern __shared__ unsigned long long table_s[];
   const int b = blockIdx.x, lane = threadIdx.x;
   const int32_t* crow = cnt + (size_t)b * N;
   const int32_t* trow = tid + (size_t)b * tid_stride;
   const int32_t* grow = gdiag + (size_t)b * N;
   const int64_t* orow = order + (size_t)b * N;
-  // a read's scratch: (order index, count) of every entry, then the
-  // (tid, gdiag) of the entries past kSelCap, in whole chunks
-  int2* aux = scratch + (size_t)b * (N + spill_entries(N));
-  int2* spill = aux + N;
+  // a read's scratch: (order index, count) of every kept entry, then its
+  // table when not in shared memory
+  unsigned long long* row = scratch + (size_t)b * (N + (kShared ? 0 : slots));
+  int2* aux = reinterpret_cast<int2*>(row);
+  unsigned long long* table = kShared ? table_s : row + N;
+  const unsigned mask = (unsigned)slots - 1u;
+  for (int i = lane; i < slots; i += 32) table[i] = kEmpty;
+  __syncwarp();
+  const unsigned last_bucket = udiv(0xffffffffu, w);
+  bool sentinel = false;   // (-1, -1) kept
 
   // batch 0's candidates; batch 1's order
   int o0 = lane < N ? (int)orow[lane] : 0;
@@ -285,28 +392,85 @@ select_candidates_kernel(const int32_t* __restrict__ cnt,
     const int c1 = in1 ? crow[o1] : 0, t1 = in1 ? trow[o1] : 0;
     const int g1 = in1 ? grow[o1] : 0;
     const int o2 = base + 64 + lane < N ? (int)orow[base + 64 + lane] : 0;
-    unsigned m = __ballot_sync(kFull, base + lane < N && c0 >= min_hits);
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const int ti = __shfl_sync(kFull, t0, src);
-      const int gi = __shfl_sync(kFull, g0, src);
-      const int ci = __shfl_sync(kFull, c0, src);
-      const int oi = __shfl_sync(kFull, o0, src);
-      const int n_sh = min(n_kept, kSelCap);
-      if (near_any(kept_s, n_sh, ti, gi, bin_w, lane) ||
-          near_any(spill, n_kept - n_sh, ti, gi, bin_w, lane))
-        continue;
-      if (lane == (n_kept & 31)) {   // the entry's owner stores it
-        const int2 e = make_int2(ti, gi);
-        if (n_kept < kSelCap)
-          kept_s[n_kept] = e;
-        else
-          spill[n_kept - kSelCap] = e;
-        aux[n_kept] = make_int2(oi, ci);
+    bool surv = base + lane < N && c0 >= min_hits;
+    unsigned home = 0;   // where the candidate goes if it is kept
+    if (surv) {
+      const unsigned u = (unsigned)g0;
+      const unsigned bk[5] = {udiv(u - (unsigned)bin_w, w), udiv(u, w),
+                              udiv(u + (unsigned)bin_w, w), last_bucket,
+                              udiv(u ^ 0x80000000u, w)};
+      unsigned at[5];
+      unsigned long long en[5];
+#pragma unroll
+      for (int j = 0; j < 5; ++j) at[j] = slot_hash(t0, bk[j]) & mask;
+      // the five chains, a slot of each at once, each to tid t0's entry
+      // of its bucket or to a gap
+      for (unsigned walk = 0x1fu; walk;) {
+#pragma unroll
+        for (int j = 0; j < 5; ++j)
+          if ((walk >> j) & 1u) en[j] = slot<kShared>(table, at[j]);
+#pragma unroll
+        for (int j = 0; j < 5; ++j) {
+          if (!((walk >> j) & 1u)) continue;
+          if (en[j] == kEmpty) {
+            walk &= ~(1u << j);
+          } else if ((int)(en[j] >> 32) == t0 &&
+                     udiv((unsigned)en[j], w) == bk[j]) {
+            surv = surv && !near((int)(unsigned)en[j], g0, bin_w);
+            walk &= ~(1u << j);
+          } else {
+            at[j] = (at[j] + 1) & mask;
+          }
+        }
       }
-      ++n_kept;
+      if (sentinel && t0 == -1)   // (-1, -1), in the last bucket
+        surv = surv && !near(-1, g0, bin_w);
+      // the own bucket's chain ends at a gap unless it holds an entry of
+      // t0, which is near: a kept candidate's slot
+      home = at[1];
     }
+    const unsigned sv = __ballot_sync(kFull, surv);
+    unsigned keep = sv;
+    if (__popc(sv) > 1) {
+      // near[i] for the batch's earlier candidates i of the same tid: a
+      // shuffle for each, the lanes walking their own lists in step
+      unsigned rest = __match_any_sync(kFull, t0) & ((1u << lane) - 1u);
+      unsigned nm = 0;
+      while (__any_sync(kFull, rest)) {
+        const int i = rest ? __ffs(rest) - 1 : lane;
+        const int gi = __shfl_sync(kFull, g0, i);
+        if (rest) {
+          nm |= (unsigned)near(gi, g0, bin_w) << i;
+          rest &= rest - 1;
+        }
+      }
+      unsigned conf = __ballot_sync(kFull, surv && (nm & sv));
+      keep = sv & ~conf;
+      while (conf) {   // in order, against what is kept before each
+        const int j = __ffs(conf) - 1;
+        conf &= conf - 1;
+        if (!(__shfl_sync(kFull, nm, j) & keep)) keep |= 1u << j;
+      }
+    }
+    // the kept insert themselves: each at its own chain's gap, or, where
+    // two of the batch found the same gap, by compare-and-swap from there
+    const bool kept = (keep >> lane) & 1u;
+    const unsigned long long e = pack(t0, g0);
+    const bool store = kept && e != kEmpty;
+    const unsigned stores = __ballot_sync(kFull, store);
+    const bool clash = store && __popc(__match_any_sync(stores, home)) > 1;
+    if (__any_sync(kFull, clash)) {
+      if (store)
+        for (unsigned i = home;; i = (i + 1) & mask)
+          if (atomicCAS(table + i, kEmpty, e) == kEmpty) break;
+    } else if (store) {
+      table[home] = e;
+    }
+    if (kept)
+      aux[n_kept + __popc(keep & ((1u << lane) - 1u))] = make_int2(o0, c0);
+    sentinel |= __any_sync(kFull, kept && e == kEmpty);
+    n_kept += __popc(keep);
+    __syncwarp();   // the inserts before the next batch's probes
     o0 = o1;
     c0 = c1;
     t0 = t1;
@@ -336,7 +500,7 @@ select_candidates_kernel(const int32_t* __restrict__ cnt,
   float* frow = score_out + (size_t)b * K;
   int picked = 0;
   for (int base = 0; base < n_kept && picked < K; base += 32) {
-    const int j = base + lane;   // lane j mod 32 owns entry j
+    const int j = base + lane;
     bool keep = false;
     int oi = 0;
     float sc = 0.f;
@@ -366,59 +530,89 @@ select_candidates_kernel(const int32_t* __restrict__ cnt,
 
 extern "C" {
 
-int agc_seed_block(int device, const void* q_codes, const void* q_valid,
-                   const void* sorted_codes, const void* sorted_pos, int S,
-                   int NK, int NB, int L, int NQ, int nbins, int bin_w,
-                   int occ, int max_occ, int T, void* cnt,
-                   void* diag, void* stream) {
+// streams 2 * read + strand; C blocks a cluster (1, 2, 4 or 8)
+int agc_seed_block(int device, const void* q_fwd, const void* q_rev,
+                   const void* lens, const void* sorted_codes,
+                   const void* sorted_pos, const void* seed_dir, int B,
+                   int NQ, int k, int NB, int L, int nbins, int bin_w,
+                   int occ, int max_occ, int T, int C, void* cnt, void* diag,
+                   void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (S <= 0 || NB <= 0 || S > 65535 || NK < 0 || L <= 0 || nbins <= 0 ||
-      bin_w <= 0 || T <= 0 || T > nbins || max_occ < 0 ||
-      max_occ >= INT_MAX - 1)
+  if (B <= 0 || k < 1 || k > 15 || NQ < k || NB <= 0 || NB > 65535 ||
+      L <= 0 || nbins <= 0 || bin_w <= 0 || T <= 0 || T > nbins ||
+      occ < 0 || max_occ < 0 || C < 1 || C > kMaxCluster || (C & (C - 1)) ||
+      (long long)2 * B * C > INT_MAX ||
+      (long long)(NQ - k + 1) * occ >= (1ll << 30))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (2 * (size_t)nbins + ((nbins + 31) >> 5) +
-                       (((size_t)L - 1) >> kSeedShift) + 1) * 4;
+  const size_t smem = 3 * (size_t)nbins * 4;
   e = cudaFuncSetAttribute(seed_block_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
-  seed_block_kernel<<<dim3(NB, S), kSeedThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(q_codes),
-      static_cast<const uint8_t*>(q_valid),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * B * C, NB);
+  cfg.blockDim = dim3(kSeedThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(
+      &cfg, seed_block_kernel, static_cast<const uint8_t*>(q_fwd),
+      static_cast<const uint8_t*>(q_rev), static_cast<const int32_t*>(lens),
       static_cast<const int32_t*>(sorted_codes),
-      static_cast<const int32_t*>(sorted_pos), NK, NB, L, NQ, nbins, bin_w,
-      occ, max_occ, T, static_cast<int32_t*>(cnt),
+      static_cast<const int32_t*>(sorted_pos),
+      static_cast<const int32_t*>(seed_dir), NQ, k, NB, L, nbins,
+      make_div((unsigned)bin_w), occ, max_occ, T, C,
+      2 * k > kDirBits ? 2 * k - kDirBits : 0, static_cast<int32_t*>(cnt),
       static_cast<int32_t*>(diag));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// slots: a power of two >= 2N; the table is in shared memory when slots
+// <= kSelSharedSlots, else in scratch after each read's N entries
 int agc_select_candidates(int device, const void* cnt, const void* tid,
                           const void* gdiag, const void* order, int B, int N,
                           int tid_stride, int K, int min_hits, float alpha,
                           float beta, int bin_w, int do_prune, float prune,
-                          void* scratch, void* sel, void* idx,
+                          int slots, void* scratch, void* sel, void* idx,
                           void* score, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (B <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  // the shared store in whole chunks
-  const size_t smem =
-      (size_t)((min(N, kSelCap) + kChunk - 1) / kChunk * kChunk) *
-      sizeof(int2);
-  e = cudaFuncSetAttribute(select_candidates_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  select_candidates_kernel<<<B, 32, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cnt), static_cast<const int32_t*>(tid),
-      static_cast<const int32_t*>(gdiag),
-      static_cast<const int64_t*>(order), N, tid_stride, K, min_hits, alpha,
-      beta, bin_w, do_prune, prune, static_cast<int2*>(scratch),
-      static_cast<uint8_t*>(sel), static_cast<int32_t*>(idx),
-      static_cast<float*>(score));
+  if (B <= 0 || N <= 0 || K <= 0 || bin_w < 0 || bin_w > (1 << 30) ||
+      slots < 2 * N || (slots & (slots - 1)))
+    return (int)cudaErrorInvalidValue;
+  const bool in_shared = slots <= kSelSharedSlots;
+  const size_t smem = in_shared ? (size_t)slots * 8 : 0;
+  const Div w = make_div((unsigned)bin_w + 1u);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const int32_t*>(cnt);
+  const auto* t = static_cast<const int32_t*>(tid);
+  const auto* g = static_cast<const int32_t*>(gdiag);
+  const auto* o = static_cast<const int64_t*>(order);
+  auto* sc = static_cast<unsigned long long*>(scratch);
+  auto* s = static_cast<uint8_t*>(sel);
+  auto* ix = static_cast<int32_t*>(idx);
+  auto* f = static_cast<float*>(score);
+  if (in_shared) {
+    e = cudaFuncSetAttribute(select_candidates_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    select_candidates_kernel<true><<<B, 32, smem, st>>>(
+        c, t, g, o, N, tid_stride, K, min_hits, alpha, beta, bin_w, w,
+        do_prune, prune, slots, sc, s, ix, f);
+  } else {
+    select_candidates_kernel<false><<<B, 32, 0, st>>>(
+        c, t, g, o, N, tid_stride, K, min_hits, alpha, beta, bin_w, w,
+        do_prune, prune, slots, sc, s, ix, f);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -38,23 +38,33 @@ def nvcc_cmd() -> list:
     return [nvcc, *FLAGS]
 
 
-def _load(src: str, signatures: dict) -> ctypes.CDLL:
+def open_lib(src: str, signatures: dict) -> ctypes.CDLL:
     """The library built from ``src`` (built first if needed; raises on
-    failure), its functions given ``signatures``: name -> (argtypes)."""
+    failure), its functions given ``signatures``: name -> (argtypes),
+    each returning int."""
+    lib = ctypes.CDLL(build_lib(src, nvcc_cmd()))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    lib.agc_error_string.restype = ctypes.c_char_p
+    lib.agc_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _load(src: str, signatures: dict) -> ctypes.CDLL:
+    """:func:`open_lib` of one of SOURCES, once a process."""
     with _locks[src]:
         if src not in _libs:
-            lib = ctypes.CDLL(build_lib(src, nvcc_cmd()))
-            for name, argtypes in signatures.items():
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = argtypes
-            lib.agc_error_string.restype = ctypes.c_char_p
-            lib.agc_error_string.argtypes = [ctypes.c_int]
-            _libs[src] = lib
+            _libs[src] = open_lib(src, signatures)
         return _libs[src]
 
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SEED_SIGNATURES = {
+    "agc_seed_block": [_ci] + [_vp] * 6 + [_ci] * 11 + [_vp] * 3,
+    "agc_select_candidates": [_ci] + [_vp] * 4 + [_ci] * 5
+    + [_cf, _cf, _ci, _ci, _cf, _ci] + [_vp] * 5}
 
 
 def get_lib() -> ctypes.CDLL:
@@ -73,10 +83,7 @@ def get_adaptive_lib() -> ctypes.CDLL:
 
 def get_seed_lib() -> ctypes.CDLL:
     """The mesh seeder's kernels (``csrc/seed_mesh.cu``)."""
-    return _load(SEED_SRC, {
-        "agc_seed_block": [_ci] + [_vp] * 4 + [_ci] * 10 + [_vp] * 3,
-        "agc_select_candidates": [_ci] + [_vp] * 4 + [_ci] * 5
-        + [_cf, _cf, _ci, _ci, _cf] + [_vp] * 5})
+    return _load(SEED_SRC, SEED_SIGNATURES)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -101,6 +108,18 @@ def need(x, name: str, dtype, shape, device=None) -> None:
                          f"got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+_sms: dict = {}
+
+
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``."""
+    if index not in _sms:
+        import torch
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
 
 
 def launch_target(dev):

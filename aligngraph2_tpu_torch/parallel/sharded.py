@@ -25,14 +25,16 @@ seeding and the static band):
      the mesh (``_extend_body``).
 
 The JAX functions are XLA, not Pallas.  Their plain versions here
-(``_seed_block_candidates_ref``, ``_select_read_candidates_ref``) are
-torch ops, value for value: int32 arithmetic that wraps where JAX's
+(``_seed_reads_ref``: ``kmer_codes_batch`` and
+``_seed_block_candidates_ref`` a strand; ``_select_read_candidates_ref``)
+are torch ops, value for value: int32 arithmetic that wraps where JAX's
 wraps, floor division, ``lax.top_k``'s tie rule (the lower bin first) and
 float32 clamp arithmetic; the dedup's sequential loop goes through
-``ops/banded_dp.py``'s ``_loop``.  ``_seed_block_candidates`` and
+``ops/banded_dp.py``'s ``_loop``.  ``_seed_reads`` and
 ``_select_read_candidates`` take the plain versions on CPU tensors and on
-CUDA tensors launch ``seed_block_kernel`` and ``select_candidates_kernel``
-of ``csrc/seed_mesh.cu`` (:func:`seed_block`, :func:`select_candidates`,
+CUDA tensors launch ``seed_block_kernel`` (the k-mer codes and both
+strands in one launch) and ``select_candidates_kernel`` of
+``csrc/seed_mesh.cu`` (:func:`seed_block`, :func:`select_candidates`,
 which count their launches in ``.launches``), or raise.  The seeder and
 the extender queue every shard's work before they copy any result back,
 so several cards overlap; a shard whose rows are all padding (length 0)
@@ -67,18 +69,18 @@ INT32_MAX = np.iinfo(np.int32).max
 # (blocks x query positions) elements one pass of
 # _seed_block_candidates_ref holds per array
 _SEED_CELLS = 1 << 22
-# the kept entries a read's dedup holds in shared memory (kSelCap of
-# csrc/seed_mesh.cu); past them select_candidates_kernel spills to the
-# scratch the wrapper allocates.  Both stores hold whole chunks of
-# SELECT_CHUNK entries (kChunk), which the kernel's scan reads at once.
-SELECT_CHUNK = 256
-SELECT_SHARED_ENTRIES = 112 * SELECT_CHUNK
-# the dynamic shared memory a block of seed_block_kernel may take: 227 KB
-# less its static reduction array
-SEED_SMEM_MAX = 232448 - 128
-# seed_block_kernel's search table holds every 2^SEED_SHIFT-th code of a
-# block (kSeedShift)
-SEED_SHIFT = 6
+# the kept-entry table slots a read's dedup holds in shared memory
+# (kSelSharedSlots of csrc/seed_mesh.cu); a larger table goes to the
+# scratch the wrapper allocates
+SELECT_SHARED_SLOTS = 1 << 14
+# the dynamic shared memory a block of seed_block_kernel may take (its
+# bins): 227 KB less its static arrays (the top-T rounds' two reduction
+# rows and the touched count)
+SEED_SMEM_MAX = 232448 - 272
+# seed_block_kernel's directory of a block's codes: 2^SEED_DIR_BITS code
+# ranges (kDirBits); its threads a block (kSeedThreads)
+SEED_DIR_BITS = 16
+SEED_THREADS = 512
 
 
 class BlockIndex(NamedTuple):
@@ -269,18 +271,36 @@ def _select_read_candidates_ref(cnt, tid, gdiag, *, K, min_hits, alpha,
             place(score, torch.float32))
 
 
-def _seed_block_candidates(q_codes, q_valid, sorted_codes, sorted_pos, *,
-                           NQ, nbins, bin_w, occ, max_occ, top_t):
-    """Per (stream, local block): top-T candidate diagonal bins, cnt and
-    diag (S, NB_l, T) int32: :func:`seed_block` on CUDA tensors, the plain
-    version on CPU tensors (arguments as
-    :func:`_seed_block_candidates_ref`)."""
+def _seed_reads_ref(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos, *,
+                    k, NQ, nbins, bin_w, occ, max_occ, top_t):
+    """Both strands of a batch of reads against one device's blocks; the
+    plain version: each strand's k-mer codes (``kmer_codes_batch``), then
+    :func:`_seed_block_candidates_ref`.  q_fwd/q_rev: (B, NQ) uint8 codes,
+    read_lens (B,) int32.  Returns cnt and diag (B, 2, NB_l, T) int32,
+    the forward strand first."""
     kw = dict(NQ=NQ, nbins=nbins, bin_w=bin_w, occ=occ, max_occ=max_occ,
               top_t=top_t)
-    if q_codes.device.type == "cpu":
-        return _seed_block_candidates_ref(q_codes, q_valid, sorted_codes,
-                                          sorted_pos, **kw)
-    return seed_block(q_codes, q_valid, sorted_codes, sorted_pos, **kw)
+    per_strand = [_seed_block_candidates_ref(
+        *kmer_codes_batch(q, read_lens, k), sorted_codes, sorted_pos, **kw)
+        for q in (q_fwd, q_rev)]
+    return (torch.stack([c for c, _ in per_strand], 1),
+            torch.stack([d for _, d in per_strand], 1))
+
+
+def _seed_reads(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos,
+                seed_dir, *, k, NQ, nbins, bin_w, occ, max_occ, top_t):
+    """Both strands of a batch of reads against one device's blocks, cnt
+    and diag (B, 2, NB_l, T) int32: :func:`seed_block` on CUDA tensors,
+    the plain version on CPU tensors (arguments as
+    :func:`_seed_reads_ref`, and the blocks' :func:`seed_directory`, which
+    only the kernel reads: None will do on the CPU)."""
+    kw = dict(k=k, NQ=NQ, nbins=nbins, bin_w=bin_w, occ=occ,
+              max_occ=max_occ, top_t=top_t)
+    if q_fwd.device.type == "cpu":
+        return _seed_reads_ref(q_fwd, q_rev, read_lens, sorted_codes,
+                               sorted_pos, **kw)
+    return seed_block(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos,
+                      seed_dir, **kw)
 
 
 def _select_read_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta,
@@ -302,46 +322,97 @@ def _need_int32(**values) -> None:
             raise ValueError(f"{name}={v} does not fit int32")
 
 
-def seed_smem_bytes(nbins: int, L: int) -> int:
-    """seed_block_kernel's dynamic shared memory: hist and dsum, nbins
-    int32 each, a bit a bin for the taken winners, and the search table
-    (every 2^SEED_SHIFT-th of a block's L codes)."""
-    return (2 * nbins + (nbins + 31) // 32 + ((L - 1) >> SEED_SHIFT) + 1) * 4
+def seed_smem_bytes(nbins: int) -> int:
+    """seed_block_kernel's dynamic shared memory: hist, dsum and the
+    touched bins' list, nbins int32 each."""
+    return 3 * nbins * 4
 
 
-def seed_block(q_codes, q_valid, sorted_codes, sorted_pos, *, NQ, nbins,
-               bin_w, occ, max_occ, top_t):
-    """Launch ``seed_block_kernel`` on CUDA tensors: q_codes int32 and
-    q_valid bool (S, NK), sorted_codes and sorted_pos int32 (NB_l, L), all
-    on one card and contiguous.  Returns contiguous cnt and diag (S, NB_l,
-    T) int32.  Raises on any input the kernel does not take, among them
-    bins and a search table past SEED_SMEM_MAX."""
-    from ..ops import _cuda
-    S, NK = q_codes.shape
+def seed_dir_shift(k: int) -> int:
+    """The directory's shift for k-mer codes below 4^k: 2^SEED_DIR_BITS
+    ranges of 2^shift codes cover them."""
+    return max(2 * k - SEED_DIR_BITS, 0)
+
+
+def seed_directory(sorted_codes: torch.Tensor, k: int) -> torch.Tensor:
+    """The directory seed_block_kernel starts each search from, made once
+    an index on the codes' device: (NB, 2^SEED_DIR_BITS + 3) int32, row b
+    0, then for j = 0 .. 2^SEED_DIR_BITS the first index of
+    sorted_codes[b] whose code is not below j << seed_dir_shift(k), then
+    L.  A code c's lower bound and the end of its run lie between entries
+    h + 1 and h + 2 of h = c >> shift clamped to [-1, 2^SEED_DIR_BITS]."""
     NB, L = sorted_codes.shape
-    dev = q_codes.device
-    _cuda.need(q_codes, "q_codes", torch.int32, (S, NK))
-    _cuda.need(q_valid, "q_valid", torch.bool, (S, NK), dev)
+    dev = sorted_codes.device
+    bounds = torch.arange((1 << SEED_DIR_BITS) + 1, dtype=torch.int32,
+                          device=dev) << seed_dir_shift(k)
+    out = torch.empty((NB, (1 << SEED_DIR_BITS) + 3), dtype=torch.int32,
+                      device=dev)
+    out[:, 0] = 0
+    out[:, -1] = L
+    for b0 in range(0, NB, 64):
+        sc = sorted_codes[b0:b0 + 64]
+        out[b0:b0 + 64, 1:-1] = torch.searchsorted(
+            sc, bounds.expand(sc.shape[0], -1).contiguous(),
+            out_int32=True)
+    return out
+
+
+def seed_grid(NB: int, S: int, NK: int, sms: int) -> int:
+    """The blocks a cluster (C) of seed_block_kernel for NB index blocks
+    and S streams of NK positions on a card of ``sms`` SMs: one block an
+    (index block, stream) pair where there are 8 pairs an SM or more,
+    else the largest power of two up to 8 that brings the blocks toward
+    that and leaves each thread four positions or more of its slice."""
+    C = 1
+    while (C < 8 and NB * S * C < 8 * sms
+           and NK // (2 * C) >= 4 * SEED_THREADS):
+        C *= 2
+    return C
+
+
+def seed_block(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos, seed_dir,
+               *, k, NQ, nbins, bin_w, occ, max_occ, top_t):
+    """Launch ``seed_block_kernel`` on CUDA tensors: q_fwd and q_rev uint8
+    (B, NQ), read_lens int32 (B,), sorted_codes and sorted_pos int32
+    (NB_l, L) and their :func:`seed_directory` for this k, all on one
+    card and contiguous.  Both strands' k-mer codes are made in the
+    kernel.  Returns contiguous cnt and diag (B, 2, NB_l, T) int32.
+    Raises on any input the kernel does not take, among them bins past
+    SEED_SMEM_MAX."""
+    from ..ops import _cuda
+    B, NQ_ = q_fwd.shape
+    NB, L = sorted_codes.shape
+    dev = q_fwd.device
+    _cuda.need(q_fwd, "q_fwd", torch.uint8, (B, NQ_))
+    _cuda.need(q_rev, "q_rev", torch.uint8, (B, NQ_), dev)
+    _cuda.need(read_lens, "read_lens", torch.int32, (B,), dev)
     _cuda.need(sorted_codes, "sorted_codes", torch.int32, (NB, L), dev)
     _cuda.need(sorted_pos, "sorted_pos", torch.int32, (NB, L), dev)
-    _need_int32(NQ=NQ, occ=occ)
-    smem = seed_smem_bytes(nbins, max(L, 1))
-    if not (0 < S <= 65535 and NB > 0 and L > 0 and bin_w > 0
-            and 0 < top_t <= nbins and 0 <= max_occ < (1 << 31) - 2
-            and smem <= SEED_SMEM_MAX):
+    _cuda.need(seed_dir, "seed_dir", torch.int32,
+               (NB, (1 << SEED_DIR_BITS) + 3), dev)
+    _need_int32(NQ=NQ, occ=occ, max_occ=max_occ)
+    smem = seed_smem_bytes(nbins)
+    NK = NQ - k + 1
+    if not (NQ_ == NQ and 0 < B and 1 <= k <= 15 and NK > 0
+            and 0 < NB <= 65535 and L > 0 and bin_w > 0
+            and 0 < top_t <= nbins and occ >= 0 and max_occ >= 0
+            and NK * occ < 1 << 30 and smem <= SEED_SMEM_MAX):
         raise ValueError(
-            f"S={S}, NB={NB}, L={L}, bin_w={bin_w}, top_t={top_t}, "
-            f"nbins={nbins}, max_occ={max_occ}: need 0 < S <= 65535, NB, L "
-            f"and bin_w positive, 0 < top_t <= nbins, max_occ >= 0, and "
+            f"B={B}, NQ={NQ} (q: {NQ_}), k={k}, NB={NB}, L={L}, "
+            f"bin_w={bin_w}, top_t={top_t}, nbins={nbins}, occ={occ}, "
+            f"max_occ={max_occ}: need q's width NQ, B, L and bin_w "
+            f"positive, 1 <= k <= min(15, NQ), NB <= 65535, 0 < top_t <= "
+            f"nbins, occ and max_occ >= 0, (NQ - k + 1) * occ < 2^30, and "
             f"{smem} bytes of bins within {SEED_SMEM_MAX}")
     lib = _cuda.get_seed_lib()
-    cnt, diag = (torch.empty((S, NB, top_t), dtype=torch.int32, device=dev)
-                 for _ in range(2))
+    cnt, diag = (torch.empty((B, 2, NB, top_t), dtype=torch.int32,
+                             device=dev) for _ in range(2))
     index, stream = _cuda.launch_target(dev)
     code = lib.agc_seed_block(
-        index, q_codes.data_ptr(), q_valid.data_ptr(),
-        sorted_codes.data_ptr(), sorted_pos.data_ptr(), S, NK, NB, L, NQ,
-        nbins, bin_w, occ, max_occ, top_t, cnt.data_ptr(),
+        index, q_fwd.data_ptr(), q_rev.data_ptr(), read_lens.data_ptr(),
+        sorted_codes.data_ptr(), sorted_pos.data_ptr(), seed_dir.data_ptr(),
+        B, NQ, k, NB, L, nbins, bin_w, occ, max_occ, top_t,
+        seed_grid(NB, 2 * B, NK, _cuda.sm_count(index)), cnt.data_ptr(),
         diag.data_ptr(), stream)
     _cuda.check(lib, code, "seed_block_kernel launch")
     seed_block.launches += 1
@@ -351,13 +422,20 @@ def seed_block(q_codes, q_valid, sorted_codes, sorted_pos, *, NQ, nbins,
 seed_block.launches = 0
 
 
+def select_slots(N: int) -> int:
+    """select_candidates_kernel's table slots for N candidates a read: a
+    power of two at least 2N (a load of at most one half), at least 64."""
+    return max(64, 1 << (2 * N - 1).bit_length())
+
+
 def select_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta, bin_w,
                       prune=0.0):
     """Launch ``select_candidates_kernel`` on CUDA tensors: cnt and gdiag
     int32 (B, N), tid int32 (N,) or (B, N), all on one card and
     contiguous; the stable cnt-descending order is one torch.sort here.
     Returns (sel (B, K) bool, idx (B, K) int32, score (B, K) float32).
-    Raises on any input the kernel does not take."""
+    Raises on any input the kernel does not take, among them bin_w
+    outside [0, 2^30]."""
     from ..ops import _cuda
     B, N = cnt.shape
     dev = cnt.device
@@ -365,16 +443,19 @@ def select_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta, bin_w,
     _cuda.need(tid, "tid", torch.int32,
                (N,) if tid.dim() == 1 else (B, N), dev)
     _cuda.need(gdiag, "gdiag", torch.int32, (B, N), dev)
-    _need_int32(min_hits=min_hits, bin_w=bin_w)
-    if B <= 0 or N <= 0 or not 0 < K < 1 << 31:
-        raise ValueError(f"B={B}, N={N}, K={K}: need all three positive")
+    _need_int32(min_hits=min_hits)
+    if B <= 0 or N <= 0 or not 0 < K < 1 << 31 or N >= 1 << 29 \
+            or not 0 <= bin_w <= 1 << 30:
+        raise ValueError(f"B={B}, N={N}, K={K}, bin_w={bin_w}: need B, N "
+                         f"and K positive, N < 2^29, 0 <= bin_w <= 2^30")
     lib = _cuda.get_seed_lib()
     order = torch.sort(-cnt, dim=1, stable=True).indices
-    # a read's (order index, count) of every kept entry, then the (tid,
-    # gdiag) of those past the shared entries, in whole chunks
-    spill = -(-max(N - SELECT_SHARED_ENTRIES, 0) // SELECT_CHUNK) \
-        * SELECT_CHUNK
-    scratch = torch.empty((B, N + spill, 2), dtype=torch.int32, device=dev)
+    slots = select_slots(N)
+    # a read's (order index, count) of every kept entry, then its table of
+    # kept entries when it does not fit the shared slots
+    scratch = torch.empty(
+        (B, N + (slots if slots > SELECT_SHARED_SLOTS else 0)),
+        dtype=torch.int64, device=dev)
     sel = torch.empty((B, K), dtype=torch.bool, device=dev)
     idx = torch.empty((B, K), dtype=torch.int32, device=dev)
     score = torch.empty((B, K), dtype=torch.float32, device=dev)
@@ -382,8 +463,9 @@ def select_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta, bin_w,
     code = lib.agc_select_candidates(
         index, cnt.data_ptr(), tid.data_ptr(), gdiag.data_ptr(),
         order.data_ptr(), B, N, 0 if tid.dim() == 1 else N, K, min_hits,
-        alpha, beta, bin_w, int(prune > 0.0), prune, scratch.data_ptr(),
-        sel.data_ptr(), idx.data_ptr(), score.data_ptr(), stream)
+        alpha, beta, bin_w, int(prune > 0.0), prune, slots,
+        scratch.data_ptr(), sel.data_ptr(), idx.data_ptr(),
+        score.data_ptr(), stream)
     _cuda.check(lib, code, "select_candidates_kernel launch")
     select_candidates.launches += 1
     return sel, idx, score
@@ -399,28 +481,25 @@ def _seed_body(q_fwd, q_rev, read_lens, index_row, *, k, BL, bin_w,
 
     q_fwd/q_rev: (B, NQ) uint8 and read_lens (B,) on the row's first
     device; index_row: one (block_seq, block_start, sorted_codes,
-    sorted_pos) per block shard, each on its device.  Returns (sel,
+    sorted_pos, seed_dir) per block shard, each on its device.  Returns (sel,
     c_block, c_strand, c_diag, c_cnt, score), each (B, K), on the row's
     first device."""
     B, NQ = q_fwd.shape
     home = q_fwd.device
     nbins = int(np.ceil((BL + NQ) / bin_w)) + 2
     cnts, diags, g_seq, g_start = [], [], [], []
-    for bseq, bstart, sc, sp in index_row:
+    for bseq, bstart, sc, sp, sdir in index_row:
         dev = sc.device
         with _on(dev):
-            lens = read_lens.to(dev, non_blocking=True)
-            per_strand = []
-            for q in (q_fwd, q_rev):
-                codes, valid = kmer_codes_batch(
-                    q.to(dev, non_blocking=True), lens, k)
-                per_strand.append(_seed_block_candidates(
-                    codes, valid, sc, sp, NQ=NQ, nbins=nbins, bin_w=bin_w,
-                    occ=occ, max_occ=max_occ, top_t=K))
+            cnt, diag = _seed_reads(
+                *(x.to(dev, non_blocking=True)
+                  for x in (q_fwd, q_rev, read_lens)), sc, sp, sdir, k=k,
+                NQ=NQ, nbins=nbins, bin_w=bin_w, occ=occ, max_occ=max_occ,
+                top_t=K)
         # (B, 2, NB_l, T), gathered on the row's first device in block
         # order (the JAX all_gather over the block axis)
-        cnts.append(torch.stack([c for c, _ in per_strand], 1).to(home))
-        diags.append(torch.stack([d for _, d in per_strand], 1).to(home))
+        cnts.append(cnt.to(home))
+        diags.append(diag.to(home))
         g_seq.append(bseq.to(home))
         g_start.append(bstart.to(home))
     cnt = torch.cat(cnts, 2)
@@ -460,7 +539,7 @@ def make_sharded_seeder(mesh, *, k, BL, bin_w, min_hits, occ=4,
               max_occ=max_occ, alpha=alpha, beta=beta, K=K, prune=prune)
 
     def seeder(q_fwd, q_rev, read_lens, block_lens, block_seq, block_start,
-               sorted_codes, sorted_pos):
+               sorted_codes, sorted_pos, seed_dirs):
         B = len(read_lens)
         per = B // data_par
         outs = []
@@ -477,7 +556,7 @@ def make_sharded_seeder(mesh, *, k, BL, bin_w, min_hits, occ=4,
                 outs.append(_seed_body(
                     q_f, q_r, ln,
                     [(block_seq[d, b], block_start[d, b],
-                      sorted_codes[d, b], sorted_pos[d, b])
+                      sorted_codes[d, b], sorted_pos[d, b], seed_dirs[d, b])
                      for b in range(mesh.devices.shape[1])], **kw))
         empty = (np.zeros((per, K), bool), np.zeros((per, K), np.int32),
                  np.ones((per, K), bool), np.zeros((per, K), np.int32),
@@ -546,18 +625,24 @@ def make_sharded_extender(mesh, *, W, match=2, mismatch=-4, gap=-3,
 
 def put_sharded_index(index: BlockIndex, mesh) -> tuple:
     """The block index split over the mesh's block axis: (block_lens,
-    block_seq, block_start, sorted_codes, sorted_pos), each a (data,
-    block) object array holding that device's block shard as a tensor on
-    it (one copy per device; none where a device already holds it)."""
+    block_seq, block_start, sorted_codes, sorted_pos, seed_dirs), each a
+    (data, block) object array holding that device's block shard as a
+    tensor on it (one copy per device; none where a device already holds
+    it); seed_dirs are the shards' :func:`seed_directory`, made on each
+    CUDA device (None on the CPU, whose plain route does not read it)."""
     data_par, block_par = mesh.devices.shape
     fields = (index.block_lens, index.block_seq, index.block_start,
               index.sorted_codes, index.sorted_pos)
     per = len(index.block_lens) // block_par
-    out = tuple(np.empty(mesh.devices.shape, dtype=object) for _ in fields)
+    out = tuple(np.empty(mesh.devices.shape, dtype=object)
+                for _ in range(len(fields) + 1))
     for b in range(block_par):
         host = [torch.from_numpy(np.ascontiguousarray(f[b * per:(b + 1) * per]))
                 for f in fields]
         for d in range(data_par):
             for o, h in zip(out, host):
                 o[d, b] = h.to(mesh.devices[d, b])
+            sc = out[3][d, b]
+            out[-1][d, b] = (seed_directory(sc, index.k) if sc.is_cuda
+                             else None)
     return out

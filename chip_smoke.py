@@ -54,17 +54,26 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
           under torch.profiler; the first MESH_CPU_READS reads also
           through the mesh path on the CPU in a second child process:
           their .ref text must be equal;
-  seed_gate the histogram kernel against its plain version on the card,
-          every output exact, on the mesh phase's block index and reads:
-          S=32 at NQ=8192 and S=16 at NQ=16384 (bin_w 128), and S=8
-          contig pieces at NQ=131072, bin_w 32 (shared memory past 48
-          KB); kernel and plain ms, bound and latency model;
-  select_gate the dedup kernel against its plain version on the card at
-          B=32, N=96, 544 and 12,800 (the 1 Mb, 5 Mb and 120 Mb widths),
-          planted ties, rows whose kept list reaches ~11,500 entries and
-          rows at +-2^31, every output exact, and at N=12,800 once more
-          with the shared entries cut to 4,096 (the spill); the same
-          numbers;
+  seed_gate the histogram kernel (both strands' k-mer codes and
+          histograms in one launch) against its plain version (each
+          strand's kmer_codes_batch, then the plain histogram) on the
+          card, every output exact: on the mesh phase's block index and
+          reads, B=32 at NQ=8192 and B=16 at NQ=16384 (bin_w 128), and
+          B=8 contig pieces at NQ=131072, bin_w 32; and B=32 pieces of a
+          synthetic 600-block genome (sorted on the card, 1 GB of index)
+          at NQ=8192; the grid, kernel and plain ms, bound and latency
+          model, and the cycles a thread by phase of a clocked copy of
+          the kernel (also exact) run through the same wrapper;
+  select_gate the dedup kernel against its plain version on the card:
+          first on the table's planted edges (pairs 2^31 apart, the
+          circle's short last bucket, two targets at equal diagonals,
+          bursts inside a batch), then at B=32, N=96, 544, 12,800 and
+          32,768 (the 1 Mb, 5 Mb, 120 Mb and ~300 Mb widths; the table
+          of kept entries in the scratch past 8192), planted ties, rows
+          whose kept list reaches ~29,600 entries, rows at +-2^31 and the
+          entry (-1, -1), every output exact; the same numbers, the
+          wrapper's stable sort alone, the phase split, and the time must
+          grow at most 4x from 12,800 to 32,768;
   profile stage 2 again under torch.profiler: host spans, device time
           by kernel, the card's idle share;
   pipeline the whole eight-stage pipeline through run_pipeline on CUDA,
@@ -184,40 +193,42 @@ DEVICE_FUNCTIONS = {
     "_chain_sort": "aligngraph2_tpu/consensus/device.py:306"}
 # each function of the mesh path (parallel/sharded.py): the XLA function
 # it replaces
-# (S, NQ, bin_w) of the seed gate: the mesh phase's 8192 and 16384 buckets
-# (the kernels line reads the first) and the widest bins at the longest
-# bucket, where hist and dsum take more than 48 KB of shared memory
-SEED_GATE = ((32, 8192, 128), (16, 16384, 128), (8, 131072, 32))
+# (reads B, NQ, bin_w, index blocks) of the seed gate, each launch seeding
+# both strands of B reads: the mesh phase's 8192 and 16384 buckets on its
+# index (blocks 0; the kernels line reads the first), the widest bins at
+# the longest bucket, where hist and dsum take more than 48 KB of shared
+# memory, and the first bucket against a synthetic index of 600 blocks of
+# the mesh's block length and overlap (a 90 Mb genome; 1 GB on the card)
+SEED_GATE = ((32, 8192, 128, 0), (16, 16384, 128, 0), (8, 131072, 32, 0),
+             (32, 8192, 128, 600))
 SEED_OCC, SEED_MAX_OCC = 4, 256
 # N candidates a read in the select gate: 1 Mb (6 blocks), 5 Mb (34),
 # 120 Mb (800) and ~300 Mb (2,048) targets at K = 8 (the kernels line
-# reads the first); at the last, the kept lists of select_inputs' spread
-# rows (~90% of N past min_hits) pass the kernel's shared entries, so
-# they reach its spill
+# reads the first); past N = 8192 the kernel's table of kept entries is
+# in the wrapper's scratch, not in shared memory
 SELECT_GATE_N = (96, 544, 12800, 32768)
 SELECT_GATE_B = 32
 # calls of a plain version timed, after a warm-up call
 PLAIN_REPS = 3
-# latency models (models, not measurements): an L2 hit and a shared
-# memory step; the seed kernel's threads a block and block reads a
-# position (the table search leaves a window of two or three cache
-# lines); a dedup step (ballot, shuffles, vote, append) and 32 kept
-# entries the lanes scan
+# latency models (models, not measurements): an L2 hit, an L1 hit and a
+# shared memory step; an SM's shared memory; a dedup batch's near matrix
+# (shuffles over the earlier lanes of the same target)
 L2_HIT_CYCLES = 260
+L1_HIT_CYCLES = 35
 SHARED_STEP_CYCLES = 30
-SEED_THREADS = 512
-SEED_L2_READS = 3
-SELECT_STEP_CYCLES = 40
-SELECT_SCAN_CYCLES = 8
+SM_SHARED_BYTES = 228 * 1024
+SELECT_MATRIX_CYCLES = 150
 # operations of the least work (the bounds, not the kernels' algorithms)
+SEED_CODE_OPS = 3       # a position's rolling k-mer code: shift, or, mask
 SEED_HASH_OPS = 4       # a block's code into a hash table of (lo, n), or a
                         # query code's probe: hash, load, compare, select
 SEED_HIT_OPS = 10       # gather, diagonal, floor division, clamp, 2 adds
-SEED_BIN_OPS = 4        # a bin of one top-T pass: pair, key, compare
+SEED_BIN_OPS = 4        # a touched bin of one top-T pass: pair, key,
+                        # compare
 SELECT_OPS = 8          # a candidate: 3 gathers, compare, mean, clamp, pick
 SELECT_PROBE_OPS = 4    # a probe of the kept table: hash, load, 2 compares
 MESH_FUNCTIONS = {
-    "_seed_block_candidates": "aligngraph2_tpu/parallel/sharded.py:126",
+    "_seed_reads": "aligngraph2_tpu/parallel/sharded.py:126",
     "_select_read_candidates": "aligngraph2_tpu/parallel/sharded.py:171",
     "_seed_body": "aligngraph2_tpu/parallel/sharded.py:223",
     "_extend_body": "aligngraph2_tpu/parallel/sharded.py:294"}
@@ -255,6 +266,7 @@ def build_all() -> dict:
     jobs = {"banded_static.cu": _cuda.get_lib,
             "banded_adaptive.cu": _cuda.get_adaptive_lib,
             "seed_mesh.cu": _cuda.get_seed_lib,
+            "seed_mesh.cu, clocked": seed_clock_lib,
             "fastio.cpp": io_native.get_lib,
             "seedhits.cpp": ops_native.get_lib,
             "ingest.cpp": ingest_native.get_lib,
@@ -690,9 +702,10 @@ def adaptive_gate(args, regs) -> dict:
 
 class RefCalls:
     """Counts the calls of the adaptive band's and the mesh seeder's plain
-    versions on CUDA tensors while open: the main path must take the
-    kernels.  The package's modules call them through module attributes,
-    which is what is replaced; no package file changes."""
+    versions (the seeder's k-mer codes among them) on CUDA tensors while
+    open: the main path must take the kernels.  The package's modules
+    call them through module attributes, which is what is replaced; no
+    package file changes."""
 
     def __enter__(self):
         import torch
@@ -703,6 +716,7 @@ class RefCalls:
         self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
             (banded_dp, "banded_align_ref"), (banded_dp, "traceback_ref"),
             (aligner, "banded_align_ref"), (aligner, "traceback_ref"),
+            (sharded, "_seed_reads_ref"), (sharded, "kmer_codes_batch"),
             (sharded, "_seed_block_candidates_ref"),
             (sharded, "_select_read_candidates_ref"))]
 
@@ -1073,11 +1087,12 @@ def extender_split(mc) -> dict:
 def seeder_split(mc) -> dict:
     """Where a seeder call's time goes: every seeder call of the run
     replayed under torch.profiler, card time by kind per call (the two
-    kernels, the torch ops: k-mer codes, the sort, the glue; the copies
+    kernels, the dedup's stable sort, the other torch ops; the copies
     each way), beside the run's ms per ``_seed_body`` call."""
     wall, device = replay_card_ms(mc.seeder_replay, {
         "seed_block_kernel": "seed_block_kernel",
-        "select_candidates_kernel": "select_kernel", **COPIES})
+        "select_candidates_kernel": "select_kernel", "Sort": "sort",
+        "sort": "sort", **COPIES})
     body = mc.stats["_seed_body"]
     return {"calls": body["calls"],
             "body_ms": body["ms"] / max(body["calls"], 1),
@@ -1086,117 +1101,391 @@ def seeder_split(mc) -> dict:
             "replay_card_ms_per_call": device}
 
 
-def seed_bounds(qc, qv, sc, nbins, T, S, NK):
+# clock64() phase timers for a copy of csrc/seed_mesh.cu
+# (seed_clock_lib): (text, replacement) edits, each text found exactly
+# once in the source.  CLK(k) adds a thread's cycles since its last mark
+# to its phase k; at its end each warp adds its threads' sums to g_clk[k]
+# and 32 to g_clk[7].
+SEED_CLOCK_HEAD = """
+__device__ unsigned long long g_clk[8];
+#define CLK(k) do { long long t_ = clock64(); clk_[k] += t_ - tp_; \\
+                    tp_ = t_; } while (0)
+#define CLK_SAVE() do { for (int k_ = 0; k_ < 6; ++k_) { \\
+      long long v_ = clk_[k_]; \\
+      for (int o_ = 16; o_; o_ >>= 1) \\
+        v_ += __shfl_xor_sync(0xffffffffu, v_, o_); \\
+      if ((threadIdx.x & 31) == 0) \\
+        atomicAdd(&g_clk[k_], (unsigned long long)v_); } \\
+    if ((threadIdx.x & 31) == 0) atomicAdd(&g_clk[7], 32ull); } while (0)
+"""
+SEED_CLOCK_TAIL = """
+extern "C" int agc_read_clk(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_clk, sizeof(long long) * 8);
+}
+extern "C" int agc_reset_clk() {
+  unsigned long long z[8] = {};
+  return (int)cudaMemcpyToSymbol(g_clk, z, sizeof(z));
+}
+"""
+_CLK_INIT = "  long long clk_[6] = {}; long long tp_ = clock64();\n"
+SEED_PHASES = {
+    "seed_block_kernel": (
+        "zero bins, cluster barrier", "k-mer codes and search",
+        "hits: aggregated atomics into the leader's bins",
+        "cluster barrier after the positions", "top-T rounds (the leader)"),
+    "select_candidates_kernel": (
+        "clear the table", "next batch's gathers and the probes",
+        "near matrix and the batch's order", "inserts and the warp barrier",
+        "mean, prune and emission")}
+SEED_CLOCK_EDITS = (
+    ("namespace {\n", "namespace {\n" + SEED_CLOCK_HEAD),
+    # seed_block_kernel
+    ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
+     "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+     + _CLK_INIT),
+    ("  cluster.sync();   // the zeroed bins\n",
+     "  cluster.sync();   // the zeroed bins\n  CLK(0);\n"),
+    ("    for (int o = 0; __any_sync(kFull, o < m); ++o) {\n",
+     "    CLK(1);\n    for (int o = 0; __any_sync(kFull, o < m); ++o) {\n"),
+    ("          atomicAdd(dsum_r + x, (int)dsum_add);\n        }\n"
+     "      }\n    }\n",
+     "          atomicAdd(dsum_r + x, (int)dsum_add);\n        }\n"
+     "      }\n    }\n    CLK(2);\n"),
+    ("  if (!lead) return;\n",
+     "  CLK(3);\n  if (!lead) {\n    CLK_SAVE();\n    return;\n  }\n"),
+    ("      return;\n    }\n    if (tid == 0) {\n",
+     "      CLK(4);\n      CLK_SAVE();\n      return;\n    }\n"
+     "    if (tid == 0) {\n"),
+    ("    last = best;\n  }\n}\n",
+     "    last = best;\n  }\n  CLK(4);\n  CLK_SAVE();\n}\n"),
+    # select_candidates_kernel
+    ("  const int b = blockIdx.x, lane = threadIdx.x;\n",
+     "  const int b = blockIdx.x, lane = threadIdx.x;\n" + _CLK_INIT),
+    ("  for (int i = lane; i < slots; i += 32) table[i] = kEmpty;\n"
+     "  __syncwarp();\n",
+     "  for (int i = lane; i < slots; i += 32) table[i] = kEmpty;\n"
+     "  __syncwarp();\n  CLK(0);\n"),
+    ("    const unsigned sv = __ballot_sync(kFull, surv);\n",
+     "    CLK(1);\n    const unsigned sv = __ballot_sync(kFull, surv);\n"),
+    ("    // the kept insert themselves:",
+     "    CLK(2);\n    // the kept insert themselves:"),
+    ("    __syncwarp();   // the inserts before the next batch's probes\n",
+     "    __syncwarp();   // the inserts before the next batch's probes\n"
+     "    CLK(3);\n"),
+    ("    frow[r] = 0.f;\n  }\n}\n",
+     "    frow[r] = 0.f;\n  }\n  CLK(4);\n  CLK_SAVE();\n}\n"))
+
+
+def clocked_seed_source(src: str) -> str:
+    """``src`` (csrc/seed_mesh.cu) with the phase timers of
+    SEED_CLOCK_EDITS and the C functions agc_read_clk (the eight sums of
+    g_clk) and agc_reset_clk."""
+    for text, new in SEED_CLOCK_EDITS:
+        if src.count(text) != 1:
+            raise ValueError(f"{src.count(text)} occurrences of {text!r}")
+        src = src.replace(text, new)
+    return src + SEED_CLOCK_TAIL
+
+
+def seed_clock_lib():
+    """The clocked copy of csrc/seed_mesh.cu, built once into the
+    gitignored build directory and loaded with the committed build's
+    signatures."""
+    import ctypes
+    from aligngraph2_tpu_torch.ops import _cuda
+    from aligngraph2_tpu_torch.utils.nativebuild import BUILD_DIR
+    if not hasattr(seed_clock_lib, "lib"):
+        with open(_cuda.SEED_SRC) as f:
+            src = clocked_seed_source(f.read())
+        path = os.path.join(BUILD_DIR, "clock", "seed_mesh_clock.cu")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(src)
+        lib = _cuda.open_lib(path, {**_cuda.SEED_SIGNATURES,
+                                    "agc_read_clk": [ctypes.c_void_p],
+                                    "agc_reset_clk": []})
+        seed_clock_lib.lib = lib
+    return seed_clock_lib.lib
+
+
+def phase_split(kernel, run):
+    """One call of ``run`` (a call of a seeder kernel's wrapper) with the
+    wrapper's library swapped for :func:`seed_clock_lib`: ({"threads",
+    "cycles_per_thread", "cycles": {phase: cycles a thread}} of
+    ``kernel``, the call's output)."""
+    import ctypes
+    import torch
+    from aligngraph2_tpu_torch.ops import _cuda
+    lib = seed_clock_lib()
+    buf = (ctypes.c_ulonglong * 8)()
+    _cuda.check(lib, lib.agc_reset_clk(), "clock reset")
+    committed = _cuda.get_seed_lib
+    _cuda.get_seed_lib = lambda: lib
+    try:
+        out = run()
+    finally:
+        _cuda.get_seed_lib = committed
+    torch.cuda.synchronize()
+    _cuda.check(lib, lib.agc_read_clk(ctypes.addressof(buf)), "clock read")
+    n = max(buf[7], 1)
+    cycles = {p: buf[k] / n for k, p in enumerate(SEED_PHASES[kernel])}
+    return {"threads": buf[7], "cycles_per_thread": sum(cycles.values()),
+            "cycles": cycles}, out
+
+
+def seed_bounds(arrays, kw):
     """Least time of seed_block_kernel's function on these inputs, and
     the kernel's latency model: (bound ms, its kind, latency ms, hits).
-    Bytes: the query codes and flags, the block's codes and positions
-    read once, cnt and diag written.  Operations, the least work: each
-    block's codes into a hash table of (lo, n) and each valid position's
-    probe of each block's table (SEED_HASH_OPS each), SEED_HIT_OPS a hit
-    (this run's, counted here), and one top-T pass over the bins
-    (SEED_BIN_OPS a bin).  Latency, the kernel's algorithm: a thread's
-    positions one after the other, each its table steps in shared
-    memory and SEED_L2_READS dependent block reads."""
+    Bytes: both strands' read bytes and the lengths, the blocks' codes
+    read once, a position a hit (only a hit reads one), cnt and diag
+    written.  Operations, the least
+    work: a rolling code a valid position (SEED_CODE_OPS), each block's
+    codes into a hash table of (lo, n) and each valid position's probe of
+    each block's table (SEED_HASH_OPS each), SEED_HIT_OPS a hit, and one
+    top-T pass over the touched bins (SEED_BIN_OPS a bin), hits and bins
+    counted here from this run's data.  Latency, the kernel's design: a
+    block's positions a thread (its slice of NK / C positions over
+    its threads), each its k byte loads (one L1 hit), the directory's
+    pair and the range's first code (two L2 reads) and the rest of the
+    range's search (an L1 hit), times the waves of blocks the card holds
+    (four an SM at most, fewer where the shared memory is short) on this
+    card's SMs."""
     import numpy as np
     import torch
+    from aligngraph2_tpu_torch.ops.kmer import kmer_codes_batch
     from aligngraph2_tpu_torch.parallel import sharded
+    q_fwd, q_rev, lens, sc, sp = arrays
+    B, NQ = q_fwd.shape
     NB, L = sc.shape
-    hits = 0
-    for b in range(NB):
-        lo = torch.searchsorted(sc[b], qc)
-        n = torch.searchsorted(sc[b], qc, right=True) - lo
-        ok = qv & (n > 0) & (n <= SEED_MAX_OCC)
-        hits += int(torch.where(ok, n.clamp(max=SEED_OCC), 0).sum())
-    nbytes = qc.numel() * 5 + sc.numel() * 8 + S * NB * T * 8
-    ops = ((NB * L + int(qv.sum()) * NB) * SEED_HASH_OPS
-           + hits * SEED_HIT_OPS + S * NB * nbins * SEED_BIN_OPS)
+    k, nbins, T = kw["k"], kw["nbins"], kw["top_t"]
+    NK = NQ - k + 1
+    qpos = torch.arange(NK, device=sc.device)
+    hits = touched = valid = 0
+    for q in (q_fwd, q_rev):
+        qc, qv = kmer_codes_batch(q, lens, k)
+        valid += int(qv.sum())
+        rows = torch.arange(B, device=sc.device)[:, None] * nbins
+        for b in range(NB):
+            lo = torch.searchsorted(sc[b], qc)
+            n = torch.searchsorted(sc[b], qc, right=True) - lo
+            ok = qv & (n > 0) & (n <= kw["max_occ"])
+            hits += int(torch.where(ok, n.clamp(max=kw["occ"]), 0).sum())
+            keys = []
+            for o in range(kw["occ"]):
+                hit = ok & (o < n)
+                diag = sp[b][(lo + o).clamp(max=L - 1)] - qpos + NQ
+                x = (diag // kw["bin_w"]).clamp(0, nbins - 1)
+                keys.append((rows + x)[hit])
+            touched += int(torch.cat(keys).unique().numel())
+    nbytes = (2 * B * NQ + 4 * B + NB * L * 4 + hits * 4
+              + B * 2 * NB * T * 8)
+    ops = (valid * SEED_CODE_OPS + (NB * L + valid * NB) * SEED_HASH_OPS
+           + hits * SEED_HIT_OPS + touched * SEED_BIN_OPS)
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     bytes_ms = bytes_bound_ms(nbytes)
-    table = int(np.ceil(np.log2(((L - 1) >> sharded.SEED_SHIFT) + 2)))
-    lat_ms = (-(-NK // SEED_THREADS) * (table * SHARED_STEP_CYCLES
-                                        + SEED_L2_READS * L2_HIT_CYCLES)
+    sms = torch.cuda.get_device_properties(sc.device).multi_processor_count
+    C = sharded.seed_grid(NB, 2 * B, NK, sms)
+    threads = sharded.SEED_THREADS
+    per_sm = min(2048 // threads, SM_SHARED_BYTES // (
+        sharded.seed_smem_bytes(nbins) + 1024 + 232448
+        - sharded.SEED_SMEM_MAX))
+    position = L1_HIT_CYCLES + 2 * L2_HIT_CYCLES + L1_HIT_CYCLES
+    lat_ms = (-(-C * 2 * B * NB // (sms * per_sm))
+              * -(-(-(-NK // C)) // threads) * position
               / SM_CLOCK_HZ * 1e3)
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", lat_ms, hits)
 
 
-def seed_gate(index, k, reads, ctgs, seed, regs) -> dict:
-    """seed_block_kernel against its plain version on the card, at each
-    SEED_GATE shape, on the block index of the mesh phase (``index``, its
-    k-mer size ``k``): the first S reads of the bucket at NQ 8192 and
-    16384, and S mutated contig pieces of 60-131 kb at NQ 131072; cnt and
-    diag exact.  Prints a line per shape; returns the timings at the
-    first."""
+def synthetic_index(rng, blocks, BL, overlap, k):
+    """A random genome of ``blocks`` blocks of BL bases at the mesh's
+    overlap, made from ``rng``, and its block index sorted on the card as
+    build_block_index sorts it (stable by code): (genome codes on the host,
+    sorted_codes, sorted_pos)."""
     import numpy as np
     import torch
-    from aligngraph2_tpu_torch.io.seqdb import encode_seq
     from aligngraph2_tpu_torch.ops.kmer import kmer_codes_batch
-    from aligngraph2_tpu_torch.parallel import sharded
+    stride = BL - overlap
+    genome = rng.integers(0, 4, (blocks - 1) * stride + BL, dtype=np.uint8)
+    g = torch.from_numpy(genome).cuda()
+    codes, _ = kmer_codes_batch(
+        g.unfold(0, BL, stride).contiguous(),
+        torch.full((blocks,), BL, dtype=torch.int32, device=g.device), k)
+    del g
+    sc, sp = torch.sort(codes, dim=1, stable=True)
+    del codes
+    return genome, sc, sp.int()
+
+
+def seed_gate_shapes(index, k, reads, ctgs, seed):
+    """The seed gate's inputs on the card, one per SEED_GATE shape: (shape,
+    (q_fwd, q_rev, lens, sorted_codes, sorted_pos, seed_dir), kw).  Reads:
+    the first B reads of the mesh run's bucket at NQ 8192 and 16384, B
+    mutated contig pieces of 60-131 kb at NQ 131072, all on the mesh
+    run's block index (``index``, k-mer size ``k``); and B mutated pieces
+    of 4-8 kb of the synthetic genome (:func:`synthetic_index`) on its
+    index; each beside its reverse complement."""
+    import numpy as np
+    import torch
+    from aligngraph2_tpu_torch.io.seqdb import (decode_seq, encode_seq,
+                                                revcomp_codes)
+    from aligngraph2_tpu_torch.parallel.sharded import seed_directory
     from tests.synth import mutate
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 3)
-    sc = torch.from_numpy(index.sorted_codes).to(dev)
-    sp = torch.from_numpy(index.sorted_pos).to(dev)
-    NB, L = sc.shape
+    mesh_index = (torch.from_numpy(index.sorted_codes).to(dev),
+                  torch.from_numpy(index.sorted_pos).to(dev))
     BL = index.block_len
-    timing = {}
-    for S, NQ, bin_w in SEED_GATE:
-        if NQ <= 16384:
-            ids = [r for r in range(len(reads))
-                   if NQ // 2 < reads.size(r) <= NQ][:S]
-            seqs = [reads.get_codes(r) for r in ids]
+    for B, NQ, bin_w, blocks in SEED_GATE:
+        sc, sp = mesh_index
+        if blocks:
+            genome, sc, sp = synthetic_index(rng, blocks, BL, index.overlap,
+                                             k)
+            seqs = []
+            for _ in range(B):
+                n = int(rng.integers(NQ // 2, NQ - 200))
+                at = int(rng.integers(0, len(genome) - n))
+                seqs.append(encode_seq(mutate(
+                    rng, decode_seq(genome[at:at + n]), 0.05, 0.01,
+                    0.01))[:NQ])
+            del genome
+        elif NQ <= 16384:
+            seqs = [reads.get_codes(r) for r in range(len(reads))
+                    if NQ // 2 < reads.size(r) <= NQ][:B]
         else:
             seqs = []
-            for s in range(S):
+            for s in range(B):
                 src = ctgs.get_str(s % len(ctgs))
                 n = min(int(rng.integers(60000, NQ - 2000)), len(src))
                 at = int(rng.integers(0, len(src) - n + 1))
                 piece = mutate(rng, src[at:at + n], 0.02, 0.01, 0.01)[:NQ]
                 seqs.append(encode_seq(piece))
-        q = np.zeros((S, NQ), np.uint8)
-        lens = np.zeros(S, np.int32)
+        if len(seqs) < B:
+            raise SystemExit(f"seed_gate: {len(seqs)} reads of the "
+                             f"{NQ} bucket, {B} wanted")
+        q_fwd = np.zeros((B, NQ), np.uint8)
+        q_rev = np.zeros((B, NQ), np.uint8)
+        lens = np.zeros(B, np.int32)
         for r, c in enumerate(seqs):
-            q[r, :len(c)] = c
+            q_fwd[r, :len(c)] = c
+            q_rev[r, :len(c)] = revcomp_codes(c)
             lens[r] = len(c)
-        qc, qv = kmer_codes_batch(torch.from_numpy(q).to(dev),
-                                  torch.from_numpy(lens).to(dev), k)
         nbins = int(np.ceil((BL + NQ) / bin_w)) + 2
-        kw = dict(NQ=NQ, nbins=nbins, bin_w=bin_w, occ=SEED_OCC,
+        kw = dict(k=k, NQ=NQ, nbins=nbins, bin_w=bin_w, occ=SEED_OCC,
                   max_occ=SEED_MAX_OCC, top_t=8)
+        yield ((B, NQ, bin_w, blocks),
+               tuple(torch.from_numpy(x).to(dev) for x in (q_fwd, q_rev, lens))
+               + (sc, sp, seed_directory(sc, k)), kw)
+
+
+def seed_gate(index, k, reads, ctgs, seed, regs) -> dict:
+    """seed_block_kernel against its plain version (both strands' k-mer
+    codes, then _seed_block_candidates_ref) on the card, at each SEED_GATE
+    shape (:func:`seed_gate_shapes`); cnt and diag exact, also from the
+    clocked copy, whose cycles a thread by phase (:func:`phase_split`)
+    are in the line.  Prints a line per shape; returns the timings at the
+    first."""
+    import torch
+    from aligngraph2_tpu_torch.parallel import sharded
+
+    timing = {}
+    for (B, NQ, bin_w, blocks), arrays, kw in seed_gate_shapes(
+            index, k, reads, ctgs, seed):
         plain_ms, want = warm_ms(
-            lambda: sharded._seed_block_candidates_ref(qc, qv, sc, sp, **kw),
-            PLAIN_REPS)
-        got = sharded.seed_block(qc, qv, sc, sp, **kw)
+            lambda: sharded._seed_reads_ref(*arrays[:5], **kw), PLAIN_REPS)
+        got = sharded.seed_block(*arrays, **kw)
+        split, clocked = phase_split(
+            "seed_block_kernel", lambda: sharded.seed_block(*arrays, **kw))
         bad = [name for name, w, g in zip(("cnt", "diag"), want, got)
-               if not torch.equal(w.contiguous(), g)]
-        ms = cuda_ms(lambda: sharded.seed_block(qc, qv, sc, sp, **kw), REPS)
-        bound, by, lat, hits = seed_bounds(qc, qv, sc, nbins, 8, S,
-                                           qc.shape[1])
-        emit({"phase": "seed_gate", "S": S, "NQ": NQ, "bin_w": bin_w,
-              "blocks": NB, "L": L, "nbins": nbins,
-              "smem_bytes": sharded.seed_smem_bytes(nbins, L),
-              "streams": len(seqs), "hits": hits,
-              "nonzero_candidates": int((got[0] > 0).sum()),
+               if not torch.equal(w, g)]
+        bad += [f"clocked {name}" for name, w, g in zip(
+            ("cnt", "diag"), want, clocked) if not torch.equal(w, g)]
+        ms = cuda_ms(lambda: sharded.seed_block(*arrays, **kw), REPS)
+        bound, by, lat, hits = seed_bounds(arrays[:5], kw)
+        NB, L = arrays[3].shape
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        emit({"phase": "seed_gate", "B": B, "streams": 2 * B, "NQ": NQ,
+              "bin_w": bin_w, "blocks": NB, "L": L, "nbins": kw["nbins"],
+              "cluster": sharded.seed_grid(NB, 2 * B, NQ - kw["k"] + 1,
+                                           sms),
+              "smem_bytes": sharded.seed_smem_bytes(kw["nbins"]),
+              "hits": hits, "nonzero_candidates": int((got[0] > 0).sum()),
               "exact": not bad, "mismatch": bad, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-              "latency_model_ms": lat,
+              "latency_model_ms": lat, "phase_split": split,
               "regs": regs.get("seed_block_kernel")})
-        if bad or len(seqs) < S:
-            raise SystemExit(f"seed_gate failed at S={S} NQ={NQ} "
-                             f"bin_w={bin_w}: {bad or 'too few reads'}")
+        if bad:
+            raise SystemExit(f"seed_gate failed at B={B} NQ={NQ} "
+                             f"bin_w={bin_w} blocks={NB}: {bad}")
         if not timing:
             timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                       "bound_by": by, "err": 0}
+        del arrays, want, got
     return timing
+
+
+def planted_select_cases() -> dict:
+    """The dedup table's edges, made from a fixed seed: name -> ((cnt,
+    tid (N,), gdiag), keyword arguments).  ``half-circle``: pairs exactly
+    2^31 apart on one target (|INT_MIN| = INT_MIN is near).
+    ``short-bucket``: bin_w = 84, so 2^32 mod 85 = 1 and the circle's
+    last bucket holds gdiag -1 alone; row 0 keeps -1 and then meets 5,
+    which only the last bucket's probe finds; the rows spread around 0
+    and +-2^31.  ``two-targets``: targets 1 and 2 at the same diagonals.
+    ``burst``: equal counts, so the batches are the enumeration: 40
+    near-equal diagonals on one target (row 0), a chain 50 apart where
+    every other one is kept (row 1), and random rows."""
+    import numpy as np
+    i32 = np.iinfo(np.int32)
+    rng = np.random.default_rng(17)
+    kw = dict(alpha=0.5, beta=2.0, bin_w=64, min_hits=1, prune=0.0)
+    out = {}
+    B, N = 6, 80
+    cnt = rng.integers(5, 9, (B, N)).astype(np.int32)
+    cnt[:, N // 2:] -= 4   # the partners: lower counts, later batches
+    tid = np.tile(rng.choice(np.array([1, -1, 2], np.int32), N // 2), 2)
+    g = rng.integers(-3000, 3000, (B, N // 2))
+    gdiag = np.concatenate([g, g + (1 << 31)], 1).astype(np.int64)
+    gdiag = ((gdiag + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+    out["half-circle"] = ((cnt, tid, gdiag), dict(kw, K=80))
+    B, N = 6, 96
+    cnt = rng.integers(0, 20, (B, N)).astype(np.int32)
+    tid = rng.choice(np.array([1, 2], np.int32), N)
+    gdiag = rng.integers(-200, 200, (B, N)).astype(np.int32)
+    gdiag[2:4] = i32.min + rng.integers(0, 200, (2, N))
+    gdiag[2:4, ::2] = i32.max - rng.integers(0, 200, (2, N // 2))
+    gdiag[0, tid == 1] = 400   # out of the way
+    a, b = np.flatnonzero(tid == 1)[:2]
+    cnt[0, a], gdiag[0, a] = 30, -1
+    cnt[0, b], gdiag[0, b] = 1, 5   # a later batch
+    out["short-bucket"] = ((cnt, tid, gdiag), dict(kw, K=40, bin_w=84))
+    B, N = 4, 64
+    c = rng.integers(1, 9, (B, N // 2)).astype(np.int32)
+    tid = np.repeat(np.array([1, 2], np.int32), N // 2)
+    g = rng.integers(0, 5000, (B, N // 2)).astype(np.int32)
+    out["two-targets"] = ((np.concatenate([c, c], 1), tid,
+                           np.concatenate([g, g], 1)), dict(kw, K=64))
+    B, N = 4, 100
+    cnt = np.full((B, N), 5, np.int32)
+    tid = np.ones(N, np.int32)
+    tid[60:] = rng.choice(np.array([3, -3], np.int32), N - 60)
+    gdiag = rng.integers(0, 4000, (B, N)).astype(np.int32)
+    gdiag[0, :40] = rng.integers(0, 40, 40)
+    gdiag[1, :60] = np.arange(60) * 50
+    out["burst"] = ((cnt, tid, gdiag), dict(kw, K=64))
+    return out
 
 
 def select_inputs(rng, B, N):
     """cnt, tid, gdiag for B reads of N candidates: counts from [0, 40)
     (planted ties), six targets on both strands; by row r mod 4: nearby
-    diagonals (heavy dedup, rows 0 and 1), diagonals spread over 2^30 (a
-    kept list of nearly every candidate: row 2), and target 1's
-    diagonals at +-2^31, where the int32 difference wraps (row 3)."""
+    diagonals (heavy dedup, rows 0 and 1; in rows 1 target -1 has a
+    diagonal -1 of count 40, (tid, gdiag) = (-1, -1) being the one entry
+    the kernel's table keeps apart, and five more near it), diagonals
+    spread over 2^30 (a kept list of nearly every candidate: row 2), and
+    target 1's diagonals at +-2^31, where the int32 difference wraps
+    (row 3)."""
     import numpy as np
     cnt = rng.integers(0, 40, (B, N)).astype(np.int32)
     tid = rng.choice(np.array([-3, -2, -1, 1, 2, 3], np.int32), N)
@@ -1209,6 +1498,10 @@ def select_inputs(rng, B, N):
             0, 300, half)
         gdiag[r, one[half:]] = np.iinfo(np.int32).min + rng.integers(
             0, 300, len(one) - half)
+    neg = np.flatnonzero(tid == -1)[:6]
+    for r in range(1, B, 4):
+        cnt[r, neg[0]], gdiag[r, neg[0]] = 40, -1
+        gdiag[r, neg[1:]] = -1 + rng.integers(-100, 100, len(neg) - 1)
     return cnt, tid, gdiag
 
 
@@ -1223,11 +1516,12 @@ def select_bounds(cnt, order_kept, kw):
     at most one kept entry a bucket and a tid, so a candidate past
     min_hits probes four buckets (its own, the two beside it, and the
     one 2^31 away, since |INT_MIN| stays INT_MIN) and a kept one adds
-    itself (SELECT_PROBE_OPS each).  Latency, the kernel's algorithm, whose
-    steps scan the kept list: the slowest read's steps
-    (SELECT_STEP_CYCLES a candidate past the ballot, SELECT_SCAN_CYCLES
-    each 32 kept entries it scans)."""
+    itself (SELECT_PROBE_OPS each).  Latency, the kernel's design: the
+    slowest read's batches of 32 that hold a candidate past min_hits,
+    each a probe and an insert (a shared step, or an L2 read where the
+    table is in the scratch) and the near matrix (SELECT_MATRIX_CYCLES)."""
     import torch
+    from aligngraph2_tpu_torch.parallel import sharded
     B, N = cnt.shape
     valid = torch.sort(cnt, dim=1, descending=True, stable=True).values \
         >= kw["min_hits"]
@@ -1236,10 +1530,12 @@ def select_bounds(cnt, order_kept, kw):
                                  + int(order_kept.sum())) * SELECT_PROBE_OPS)
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     bytes_ms = bytes_bound_ms(nbytes)
-    before = order_kept.long().cumsum(1) - order_kept.long()
-    scanned = torch.where(valid, before, 0)
-    cycles = (valid.sum(1) * SELECT_STEP_CYCLES
-              + ((scanned + 31) // 32).sum(1) * SELECT_SCAN_CYCLES)
+    pad = -N % 32
+    batches = torch.nn.functional.pad(valid, (0, pad)).view(B, -1, 32) \
+        .any(2).sum(1)
+    step = (SHARED_STEP_CYCLES if sharded.select_slots(N)
+            <= sharded.SELECT_SHARED_SLOTS else L2_HIT_CYCLES)
+    cycles = batches * (2 * step + SELECT_MATRIX_CYCLES)
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes",
             int(cycles.max()) / SM_CLOCK_HZ * 1e3,
@@ -1247,19 +1543,34 @@ def select_bounds(cnt, order_kept, kw):
 
 
 def select_gate(seed, kw, regs) -> dict:
-    """select_candidates_kernel against its plain version on the card at
-    B = SELECT_GATE_B and each N of SELECT_GATE_N, on select_inputs, with
-    the mesh aligner's K, min_hits, alpha, beta, bin_w and prune (``kw``):
-    sel, idx and score exact; at the last N a kept list must pass the
-    kernel's shared entries (SELECT_SHARED_ENTRIES), so the spill is
-    checked too.  Prints a line per N; returns the timings at the
-    first."""
+    """select_candidates_kernel against its plain version on the card:
+    first on :func:`planted_select_cases`, then at B = SELECT_GATE_B and
+    each N of SELECT_GATE_N, on select_inputs, with the mesh aligner's K,
+    min_hits, alpha, beta, bin_w and prune (``kw``); sel, idx and score
+    exact, also from the clocked copy, whose cycles by phase
+    (:func:`phase_split`) are in the line; past N = 8192 the table is in
+    the scratch (``in_scratch``).  Beside the wrapper's time, that of its
+    stable torch.sort alone (``sort_ms``).  The wrapper's time must grow
+    at most 4x from N = 12,800 to 32,768 (2.56x is linear).  Prints a
+    line per case and per N; returns the timings at the first N."""
     import numpy as np
     import torch
     from aligngraph2_tpu_torch.parallel import sharded
 
+    for name, (case, case_kw) in planted_select_cases().items():
+        arrays = tuple(torch.from_numpy(x).cuda() for x in case)
+        want = sharded._select_read_candidates_ref(*arrays, **case_kw)
+        got = sharded.select_candidates(*arrays, **case_kw)
+        bad = [what for what, w, g in zip(("sel", "idx", "score"), want,
+                                          got) if not torch.equal(w, g)]
+        emit({"phase": "select_gate", "case": name, "B": case[0].shape[0],
+              "N": case[0].shape[1], "bin_w": case_kw["bin_w"],
+              "selected": int(want[0].sum()), "exact": not bad,
+              "mismatch": bad})
+        if bad:
+            raise SystemExit(f"select_gate failed on {name}: {bad}")
     rng = np.random.default_rng(seed + 4)
-    timing = {}
+    timing, by_n = {}, {}
     for N in SELECT_GATE_N:
         arrays = tuple(torch.from_numpy(x).cuda()
                        for x in select_inputs(rng, SELECT_GATE_B, N))
@@ -1267,11 +1578,18 @@ def select_gate(seed, kw, regs) -> dict:
             lambda: sharded._select_read_candidates_ref(*arrays, **kw),
             PLAIN_REPS)
         got = sharded.select_candidates(*arrays, **kw)
+        split, clocked = phase_split(
+            "select_candidates_kernel",
+            lambda: sharded.select_candidates(*arrays, **kw))
         bad = [name for name, w, g in zip(("sel", "idx", "score"), want, got)
                if not torch.equal(w, g)]
+        bad += [f"clocked {name}" for name, w, g in zip(
+            ("sel", "idx", "score"), want, clocked) if not torch.equal(w, g)]
         ms = cuda_ms(lambda: sharded.select_candidates(*arrays, **kw), REPS)
-        # every kept entry before the prune, in order: the dedup's work
+        by_n[N] = ms
         cnt = arrays[0]
+        sort_ms = cuda_ms(lambda: torch.sort(-cnt, dim=1, stable=True), REPS)
+        # every kept entry before the prune, in order: the dedup's work
         every = sharded._select_read_candidates_ref(
             *arrays, **dict(kw, K=N, prune=0.0))
         order = torch.sort(-cnt, dim=1, stable=True).indices
@@ -1282,22 +1600,26 @@ def select_gate(seed, kw, regs) -> dict:
         kept = torch.zeros((SELECT_GATE_B, N + 1), dtype=torch.bool,
                            device=cnt.device).scatter_(1, at, True)[:, :N]
         bound, by, lat, most = select_bounds(cnt, kept, kw)
-        spilled = max(most - sharded.SELECT_SHARED_ENTRIES, 0)
+        slots = sharded.select_slots(N)
         emit({"phase": "select_gate", "B": SELECT_GATE_B, "N": N,
               "selected": int(want[0].sum()), "most_kept": most,
-              "spilled": spilled, "exact": not bad, "mismatch": bad,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-              "bound_by": by, "latency_model_ms": lat,
+              "table_slots": slots,
+              "in_scratch": slots > sharded.SELECT_SHARED_SLOTS,
+              "exact": not bad, "mismatch": bad,
+              "ms": ms, "sort_ms": sort_ms, "plain_ms": plain_ms,
+              "bound_ms": bound, "bound_by": by, "latency_model_ms": lat,
+              "phase_split": split,
               "regs": regs.get("select_candidates_kernel")})
         if bad:
             raise SystemExit(f"select_gate failed at N={N}: {bad}")
-        if N == SELECT_GATE_N[-1] and not spilled:
-            raise SystemExit(f"select_gate: no kept list passed "
-                             f"{sharded.SELECT_SHARED_ENTRIES} shared "
-                             f"entries at N = {N}")
         if not timing:
             timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                       "bound_by": by, "err": 0}
+    growth = by_n[32768] / by_n[12800]
+    emit({"phase": "select_gate", "growth_12800_to_32768": growth})
+    if growth > 4:
+        raise SystemExit(f"select_gate: {growth:.2f}x from N = 12,800 to "
+                         f"32,768, over 4x")
     return timing
 
 

@@ -3,7 +3,8 @@ against the JAX package's (aligngraph2_tpu/parallel/), on the conftest's 8
 virtual CPU devices for JAX and lists of CPU devices for the port:
 
   * ``build_block_index``: every array equal;
-  * ``_seed_block_candidates`` and ``_select_read_candidates``: equal to
+  * ``_seed_reads`` (both strands' codes and ``_seed_block_candidates``)
+    and ``_select_read_candidates``: equal to
     the JAX functions on seeded inputs with planted count ties (repeats
     at several diagonals, a small k, counts from a small range), with the
     prune off and on;
@@ -97,33 +98,40 @@ def _queries(seed, seg, NQ):
 
 @pytest.mark.parametrize("k, BL, occ", [(11, 1024, 4), (5, 512, 2)])
 def test_seed_block_candidates_equals_jax(k, BL, occ):
-    """Per (read, block) top-T bins and their mean diagonals, exactly; the
-    repeats give equal counts at several bins, which must come out in
-    lax.top_k's order (the lower bin first)."""
+    """Per (read, strand, block) top-T bins and their mean diagonals,
+    exactly: the port's fused entry (``_seed_reads``: both strands' k-mer
+    codes and the histogram) against the JAX package's k-mer codes and
+    ``_seed_block_candidates`` a strand.  The repeats give equal counts
+    at several bins, which must come out in lax.top_k's order (the lower
+    bin first)."""
     from aligngraph2_tpu.ops.kmer import kmer_codes_batch as jcodes
-    from aligngraph2_tpu_torch.ops.kmer import kmer_codes_batch as tcodes
     g, seg = _repeat_genome(2)
     idx = _block_index("jax", [("g", g)], k, BL, 1)
     NQ, bin_w, T = 512, 64, 4
     q, lens = _queries(3, seg, NQ)
+    q_rev = q[::-1].copy()   # any second strand: the rows reversed
     nbins = int(np.ceil((BL + NQ) / bin_w)) + 2
     kw = dict(NQ=NQ, nbins=nbins, bin_w=bin_w, occ=occ, max_occ=64,
               top_t=T)
-    qc, qv = jcodes(jnp.asarray(q), jnp.asarray(lens), k)
-    want = jsh._seed_block_candidates(qc, qv, jnp.asarray(idx.sorted_codes),
-                                      jnp.asarray(idx.sorted_pos), **kw)
-    tc, tv = tcodes(torch.from_numpy(q), torch.from_numpy(lens), k)
-    got = tsh._seed_block_candidates(tc, tv,
-                                     torch.from_numpy(idx.sorted_codes),
-                                     torch.from_numpy(idx.sorted_pos), **kw)
-    cnt_w = np.asarray(want[0])
+    want = []
+    for qs in (q, q_rev):
+        qc, qv = jcodes(jnp.asarray(qs), jnp.asarray(lens), k)
+        want.append(jsh._seed_block_candidates(
+            qc, qv, jnp.asarray(idx.sorted_codes),
+            jnp.asarray(idx.sorted_pos), **kw))
+    want = [np.stack([np.asarray(w[j]) for w in want], 1) for j in (0, 1)]
+    sc = torch.from_numpy(idx.sorted_codes)
+    got = tsh._seed_reads(torch.from_numpy(q), torch.from_numpy(q_rev),
+                          torch.from_numpy(lens), sc,
+                          torch.from_numpy(idx.sorted_pos),
+                          tsh.seed_directory(sc, k), k=k, **kw)
+    cnt_w = want[0]
     # the planted ties are there: equal non-zero counts in one (read, block)
     assert any(len(set(row[row > 0])) < (row > 0).sum()
                for row in cnt_w.reshape(-1, T))
     for w, t, name in zip(want, got, ("cnt", "diag")):
-        assert t.dtype == torch.int32
-        np.testing.assert_array_equal(t.numpy(), np.asarray(w),
-                                      err_msg=name)
+        assert t.dtype == torch.int32 and t.shape == w.shape
+        np.testing.assert_array_equal(t.numpy(), w, err_msg=name)
 
 
 @pytest.mark.parametrize("prune", [0.0, 0.3, 0.81])
