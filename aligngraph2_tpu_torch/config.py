@@ -16,6 +16,11 @@ import json
 from dataclasses import dataclass, field
 from typing import Optional
 
+# the band widths the CUDA kernels take (ops/banded_dp.py and
+# ops/banded_static.py): band_width a power of two in this range; the CPU
+# takes any width
+BAND_WIDTH_MIN, BAND_WIDTH_MAX = 16, 4096
+
 
 @dataclass
 class AlignerConfig:
@@ -239,6 +244,13 @@ class PipelineConfig:
             raise ValueError("Thread number must not be negative")
         if self.runtime.device not in ("cuda", "cpu"):
             raise ValueError("device must be cuda or cpu")
+        W = a.band_width
+        if self.runtime.device == "cuda" and not (
+                BAND_WIDTH_MIN <= W <= BAND_WIDTH_MAX and W & (W - 1) == 0):
+            raise ValueError(
+                f"band_width {W}: on cuda it must be a power of two from "
+                f"{BAND_WIDTH_MIN} to {BAND_WIDTH_MAX} (the band kernels' "
+                "widths)")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)

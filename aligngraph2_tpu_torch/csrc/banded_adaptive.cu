@@ -76,7 +76,24 @@
 // scheduler, no other warp to hide its latencies; the shuffle scan is the
 // longest part) is what bounds the kernel now: PERF.md has its cycles a
 // row and the variants that did not pay.
-// W is 64, 128, 256, 512 or 1024 (C = 2 .. 32).
+// W is a power of two from 16 to 4096.  W = 64 .. 1024 take the form above
+// (C = 2 .. 32).  W = 32 and 16 take it with one column a thread (C = 1);
+// at W = 16 lanes 16 .. 31 hold no column: their cells are NEG, so they
+// take no part in the reductions, and they store nothing.  W = 2048 and
+// 4096 (dp_group) give a lane G = W / 1024 warps, one block: warp g owns
+// columns [1024 g, 1024 g + 1024) as the W = 1024 form owns its row (its
+// own staged window, 32 columns a thread in registers), and what crosses
+// the warps goes through shared memory with one barrier a row.  Before
+// the barrier each warp publishes its gap chain's total T_g (the chain's
+// value at its last column, from its own columns alone), its own cells'
+// best key (or maximum and first column) and its first two H values;
+// after it every warp reads all G: the carry into warp g is C_g =
+// max(T_{g-1}, C_{g-1} + 1024 gap) (the final H of column 1024 g - 1), a
+// warp's best after the carry is its own best or the carry term at its
+// first live column (the term falls along the row, so that column holds
+// its largest key), the row's best is the best of the G, and the
+// neighbours across the warp edges are read off C_g and the published
+// values.  The row key takes log2 W column bits at these widths.
 //
 // tb_adaptive_kernel replaces traceback of aligngraph2_tpu/ops/banded_dp.py.
 // It walks from (best_i, best_j): DIAG to (i-1, j + dc), UP to
@@ -87,7 +104,10 @@
 // max_steps moves, and writes the moves END->START (zero padded by the
 // caller), the move count and the cursor where it stopped.
 // Bound: the latency of the walk's dependent chain; a few bytes a move
-// leave HBM idle.  Design: one warp per lane and block.
+// leave HBM idle.  Design: one warp per lane and block.  At W = 2048 and
+// 4096 a tile of 32 rows is 64 and 128 KB, too large for a ring of four:
+// there (NB = 0) each lane's byte and centres are read from global memory
+// through the caches, and nothing is staged.
 //   * A warp step reads a whole DIAG run: if the next k + 1 moves are
 //     DIAG, move k reads row min(i-1-k, NQ-1) at column j + cen[min(i,NQ)]
 //     - cen[min(i-k,NQ)], so lane k reads that byte, __ballot_sync of "not
@@ -120,8 +140,12 @@ constexpr int kLeft = 3;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDpLanes = 4;    // DP lanes (warps) per block
 constexpr int kStage = 32;     // rows per staged target window
-constexpr int kKeyBits = 10;   // row key: h << kKeyBits | (1023 - column)
-constexpr int kKeyCol = (1 << kKeyBits) - 1;
+// row key: h << key_bits | (2^key_bits - 1 - column), 10 bits up to
+// W = 1024, log2 W past it
+template <int W>
+__host__ __device__ constexpr int key_bits() {
+  return W <= 1024 ? 10 : W == 2048 ? 11 : 12;
+}
 constexpr int kTile = 32;      // dirs rows per traceback tile
 constexpr int kRing = 256;     // bytes of the traceback's move ring
 
@@ -144,9 +168,11 @@ __device__ __forceinline__ void store_dirs(uint8_t* dst,
     *reinterpret_cast<uint2*>(dst) = make_uint2(d[0], d[1]);
   } else if constexpr (C == 4) {
     *reinterpret_cast<unsigned*>(dst) = d[0];
-  } else {
-    static_assert(C == 2, "the kernel takes W = 64 .. 1024");
+  } else if constexpr (C == 2) {
     *reinterpret_cast<unsigned short*>(dst) = (unsigned short)d[0];
+  } else {
+    static_assert(C == 1, "C = 1 .. 32 columns a thread");
+    *dst = (uint8_t)d[0];
   }
 }
 
@@ -186,12 +212,13 @@ __device__ __forceinline__ void row_reduce(const int (&H)[C],
 }
 
 // The row maximum (kNeg for a row of NEG cells) and its first column.
-template <bool PACKED>
+template <int W, bool PACKED>
 __device__ __forceinline__ void row_result(int ra, int rb, int& rmax,
                                            int& rarg) {
   if constexpr (PACKED) {
-    rmax = ra >= 0 ? ra >> kKeyBits : kNeg;
-    rarg = kKeyCol - (ra & kKeyCol);
+    constexpr int KB = key_bits<W>();
+    rmax = ra >= 0 ? ra >> KB : kNeg;
+    rarg = ((1 << KB) - 1) - (ra & ((1 << KB) - 1));
   } else {
     rmax = ra;
     rarg = rb;
@@ -221,20 +248,27 @@ __device__ __forceinline__ void fetch_window(uint8_t* dst,
   __pipeline_commit();
 }
 
+// dp_adaptive_kernel's arguments, for the two forms of a lane
+#define AGC_DP_PARAMS                                                       \
+  const uint8_t *__restrict__ q, const uint8_t *__restrict__ t,             \
+      const int32_t *__restrict__ qlen, const int32_t *__restrict__ tlen,   \
+      const int32_t *__restrict__ c0, int B, int NQ, int NT, int c_hi,      \
+      int match, int mismatch, int gap, int x_drop,                         \
+      int32_t *__restrict__ score, int32_t *__restrict__ best_i,            \
+      int32_t *__restrict__ best_j, uint8_t *__restrict__ dirs,             \
+      int32_t *__restrict__ centers, int32_t *__restrict__ rows,            \
+      int32_t *__restrict__ c_last
+#define AGC_DP_ARGS                                                       \
+  q, t, qlen, tlen, c0, B, NQ, NT, c_hi, match, mismatch, gap, x_drop,    \
+      score, best_i, best_j, dirs, centers, rows, c_last
+
+// One lane a warp, W = 16 .. 1024.
 template <int W, bool PACKED>
-__global__ void __launch_bounds__(32 * kDpLanes)
-dp_adaptive_kernel(const uint8_t* __restrict__ q,
-                   const uint8_t* __restrict__ t,
-                   const int32_t* __restrict__ qlen,
-                   const int32_t* __restrict__ tlen,
-                   const int32_t* __restrict__ c0, int B, int NQ, int NT,
-                   int c_hi, int match, int mismatch, int gap, int x_drop,
-                   int32_t* __restrict__ score, int32_t* __restrict__ best_i,
-                   int32_t* __restrict__ best_j, uint8_t* __restrict__ dirs,
-                   int32_t* __restrict__ centers, int32_t* __restrict__ rows,
-                   int32_t* __restrict__ c_last) {
-  constexpr int C = W / 32;        // columns per thread
+__device__ __forceinline__ void dp_warp(AGC_DP_PARAMS) {
+  constexpr int C = W >= 32 ? W / 32 : 1;   // columns per thread
+  constexpr int NL = W / C;        // threads holding columns (16 at W = 16)
   constexpr int NA = (C + 3) / 4;  // words of four target bytes a thread
+  constexpr int kKeyCol = (1 << key_bits<W>()) - 1;
   // staged window bytes: a stage's rows read window positions base_{i-1}
   // .. base_{i-1} + W + 1 (every drift), base_{i-1} at most 126 past the
   // base its fetch was issued at (63 rows of 0-2), plus 16-byte alignment
@@ -245,7 +279,10 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * kDpLanes + warp;
   if (b >= B) return;
-  const int j0 = lane * C;
+  // a thread past NL mirrors thread lane - NL's window reads (in the
+  // span) and holds only NEG cells
+  const int j0 = (lane & (NL - 1)) * C;
+  const bool has_cols = NL == 32 || lane < NL;
   const int kc = kKeyCol - j0;     // column j0 + k keys kc - k
   const uint8_t* qrow = q + (size_t)b * NQ;
   const uint8_t* trow = t + (size_t)b * NT;
@@ -276,7 +313,7 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int p = c - W / 2 + j0 + k;
-      const bool ok = p >= 0 && p <= tl;
+      const bool ok = has_cols && p >= 0 && p <= tl;
       H[k] = ok ? 0 : kNeg;
       key[k] = ok ? kc - k : -1;
     }
@@ -284,7 +321,8 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
   }
   int lft = __shfl_up_sync(kFull, H[C - 1], 1);
   int rt0 = __shfl_down_sync(kFull, H[0], 1);
-  int rt1 = __shfl_down_sync(kFull, H[1], 1);
+  int rt1 = C > 1 ? __shfl_down_sync(kFull, H[C > 1 ? 1 : 0], 1)
+                  : __shfl_down_sync(kFull, H[0], 2);
   if (lane == 0) crow[0] = c;
 
   int best = 0, bi = 0, bj = 0;
@@ -329,7 +367,7 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
     // most 0, so it never moves it) and whether the lane stops after row
     // i, acted on once row i + 1's chain has been issued
     int rmax, rarg;
-    row_result<PACKED>(ra, rb, rmax, rarg);
+    row_result<W, PACKED>(ra, rb, rmax, rarg);
     if (rmax > best) {
       best = rmax;
       bi = i;
@@ -352,10 +390,11 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
     // predecessors: E[k] = H_{i-1}[j0 - 1 + k], diag = E[k + 1 + dc],
     // up = E[k + 2 + dc]
     if (lane == 0) lft = kNeg;
-    if (lane == 31) {
+    if (lane == NL - 1) {
       rt0 = kNeg;
       rt1 = kNeg;
     }
+    if (C == 1 && lane == NL - 2) rt1 = kNeg;
     int S[C + 1];
 #pragma unroll
     for (int k = 0; k <= C; ++k) {
@@ -400,13 +439,13 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
       const unsigned at = 8u * (k & 3);
       if (h > M[k]) d[k >> 2] |= (unsigned)kLeft << at;
       const int p = p0 + k;
-      const bool ok = row_ok && p >= 0 && p <= tl;
+      const bool ok = has_cols && row_ok && p >= 0 && p <= tl;
       if (!ok) {
         h = kNeg;
         d[k >> 2] &= ~(0xffu << at);
       }
       H[k] = h;
-      key[k] = ok ? (h << kKeyBits) + kc - k : -1;
+      key[k] = ok ? (h << key_bits<W>()) + kc - k : -1;
     }
     if (stop) {   // row i - 1 was the last: drop row i
       --i;
@@ -415,13 +454,14 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
       if (lane <= kb) crow[i - kb + lane] = ckeep;
       break;
     }
-    store_dirs<C>(drow + (size_t)(i - 1) * W, d);
+    if (has_cols) store_dirs<C>(drow + (size_t)(i - 1) * W, d);
     if (lane == blk) ckeep = c;
     if (blk == kStage - 1) crow[i - blk + lane] = ckeep;
     // row i's shuffles and reduction, consumed in the next iteration
     lft = __shfl_up_sync(kFull, H[C - 1], 1);
     rt0 = __shfl_down_sync(kFull, H[0], 1);
-    rt1 = __shfl_down_sync(kFull, H[1], 1);
+    rt1 = C > 1 ? __shfl_down_sync(kFull, H[C > 1 ? 1 : 0], 1)
+                : __shfl_down_sync(kFull, H[0], 2);
     row_reduce<C, PACKED>(H, key, j0, ra, rb);
   }
   cp_async_wait<0>();   // no copy outlives the warp
@@ -432,6 +472,274 @@ dp_adaptive_kernel(const uint8_t* __restrict__ q,
     rows[b] = i;
     c_last[b] = c;
   }
+}
+
+// One lane a block of G = W / 1024 warps, W = 2048 or 4096: warp g runs
+// the W = 1024 form on columns [1024 g, 1024 g + 1024), and the row's
+// values that cross the warps go through shared memory, one barrier a row
+// (see the top of the file).
+template <int W, bool PACKED>
+__device__ __forceinline__ void dp_group(AGC_DP_PARAMS) {
+  constexpr int G = W / 1024;      // warps a lane
+  constexpr int C = 32;            // columns per thread
+  constexpr int NA = C / 4;
+  constexpr int SPAN = 1024 + 160; // a warp's staged window
+  constexpr int KB = key_bits<W>();
+  constexpr int KCOL = (1 << KB) - 1;
+  __shared__ __align__(16) uint8_t s_win[G][2][SPAN];
+  // a warp's row, by row parity: its chain's total, its best key (or
+  // maximum and first column) and its first two H values
+  __shared__ int s_pub[2][G][5];
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x >> 5;
+  const int b = blockIdx.x;
+  const int gc = g * 1024;         // the warp's first column
+  const int jl0 = lane * C;        // the thread's first, within the warp
+  const int j0 = gc + jl0;
+  const int kc = KCOL - j0;        // column j0 + k keys kc - k
+  const uint8_t* qrow = q + (size_t)b * NQ;
+  const uint8_t* trow = t + (size_t)b * NT;
+  uint8_t* drow = dirs + (size_t)b * NQ * W + j0;
+  int32_t* crow = centers + (size_t)b * (NQ + 1);
+  const int ql = qlen[b];
+  const int tl = tlen[b];
+  const bool xd = x_drop > 0;
+  const int last_row = xd || ql >= NQ ? NQ : max(ql, 0) + 1;
+  int c = c0[b];
+  int cw = min(max(c, -W), c_hi);
+  int base = cw - W / 2 - 1;
+
+  // stage 0's window, this warp's part of it (from s + gc)
+  int s_next = base & ~15;
+  fetch_window<SPAN>(s_win[g][0], trow, s_next + gc, NT, lane);
+  unsigned qn = lane < NQ ? qrow[lane] : 0u;
+
+  // row 0: 0 where p = c0 - W/2 + j lies in [0, tlen], else NEG; its
+  // maximum is at most 0, so it moves neither the centre nor the best
+  auto live0 = [&](int j) {
+    const int p = c - W / 2 + j;
+    return p >= 0 && p <= tl;
+  };
+  int H[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) H[k] = live0(j0 + k) ? 0 : kNeg;
+  int lft = __shfl_up_sync(kFull, H[C - 1], 1);
+  int rt0 = __shfl_down_sync(kFull, H[0], 1);
+  int rt1 = __shfl_down_sync(kFull, H[1], 1);
+  if (lane == 0) lft = g > 0 && live0(gc - 1) ? 0 : kNeg;
+  if (lane == 31) {
+    rt0 = g < G - 1 && live0(gc + 1024) ? 0 : kNeg;
+    rt1 = g < G - 1 && live0(gc + 1025) ? 0 : kNeg;
+  }
+  if (threadIdx.x == 0) crow[0] = c;
+
+  int best = 0, bi = 0, bj = 0;
+  int rmax = 0, rarg = 0;   // the last row's maximum and first column
+  int s = 0;                // window position of the stage's win[0]
+  unsigned qv = 0;          // query byte of row (stage start + lane + 1)
+  int ckeep = 0;            // centre of row (stage start + lane + 1)
+  const uint8_t* win = s_win[g][0];
+  int i = 0;                // the last row computed
+  while (true) {
+    const int blk = i & (kStage - 1);
+    if (blk == 0) {   // a group's stage: wait for its window, fetch the next
+      cp_async_wait<0>();
+      __syncwarp();
+      const int st = i / kStage;
+      win = s_win[g][st & 1];
+      s = s_next;
+      s_next = base & ~15;
+      fetch_window<SPAN>(s_win[g][(st + 1) & 1], trow, s_next + gc, NT,
+                         lane);
+      qv = qn;
+      const int qx = i + kStage + lane;
+      qn = qx < NQ ? qrow[qx] : 0u;
+    }
+    const unsigned qrep = __shfl_sync(kFull, qv, blk) * 0x01010101u;
+    unsigned eqw[NA + 1];   // compares from window position base_i + j0
+    {
+      const int o = base - s + jl0;
+      const unsigned* wp = reinterpret_cast<const unsigned*>(win) + (o >> 2);
+      const unsigned sh = 8u * (o & 3);
+      unsigned w[NA + 2];
+#pragma unroll
+      for (int k = 0; k < NA + 2; ++k) w[k] = wp[k];
+#pragma unroll
+      for (int k = 0; k <= NA; ++k)
+        eqw[k] = __vcmpeq4(__funnelshift_r(w[k], w[k + 1], sh), qrep);
+    }
+    ++i;   // row i, from row i - 1's maximum
+    const int dc = rmax > 0 ? min(max(rarg - W / 2, -1), 1) : 0;
+    const int cn = min(max(c + dc, -W), c_hi);
+    const unsigned dsh = 8u * (cn - cw + 1);
+    base += 1 + cn - cw;
+    cw = cn;
+    c = cn;
+    unsigned eq[NA];
+#pragma unroll
+    for (int k = 0; k < NA; ++k) eq[k] = __funnelshift_r(eqw[k], eqw[k + 1], dsh);
+    int S[C + 1];
+#pragma unroll
+    for (int k = 0; k <= C; ++k) {
+      const int em = k == 0 ? lft : H[k > 0 ? k - 1 : 0];
+      const int e0 = k < C ? H[k < C ? k : 0] : rt0;
+      const int ep = k + 1 < C ? H[k + 1 < C ? k + 1 : 0]
+                               : (k + 1 == C ? rt0 : rt1);
+      S[k] = dc < 0 ? em : (dc == 0 ? e0 : ep);
+    }
+    int M[C];
+    unsigned d[NA];
+#pragma unroll
+    for (int k = 0; k < NA; ++k) d[k] = 0;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const bool hit = (eq[k >> 2] >> (8 * (k & 3))) & 1u;
+      const int dv = S[k] + (hit ? match : mismatch);
+      const int uv = S[k + 1] + gap;
+      const int m = max(dv, uv);
+      const unsigned code = m > 0 ? (dv >= uv ? kDiag : kUp) : kStop;
+      d[k >> 2] |= code << (8 * (k & 3));
+      M[k] = max(m, 0);
+    }
+    // the warp's own gap chain: serial prefix, scan, fix-up (unmasked)
+    H[0] = M[0];
+#pragma unroll
+    for (int k = 1; k < C; ++k) H[k] = addmax(H[k - 1], gap, M[k]);
+    int x = H[C - 1];
+#pragma unroll
+    for (int e = 1; e < 32; e <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, e);
+      if (lane >= e) x = addmax(y, gap * C * e, x);
+    }
+    const int total = __shfl_sync(kFull, x, 31);
+    int carry = __shfl_up_sync(kFull, x, 1);
+    if (lane == 0) carry = kNeg;
+    const int p0 = base + 1 + j0;
+    const bool row_ok = i <= ql;
+    int v[C];   // the keys (PACKED), or H with NEG cells (else)
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      H[k] = addmax(carry, gap * (k + 1), H[k]);
+      const int p = p0 + k;
+      const bool ok = row_ok && p >= 0 && p <= tl;
+      v[k] = PACKED ? (ok ? (H[k] << KB) + kc - k : -1) : (ok ? H[k] : kNeg);
+    }
+    int ra, rb = 0;
+    row_reduce<C, PACKED>(v, v, j0, ra, rb);
+    int* pub = s_pub[i & 1][g];
+    if (lane == 0) {
+      pub[0] = total;
+      pub[1] = ra;
+      pub[2] = rb;
+      pub[3] = H[0];
+      pub[4] = H[1];
+    }
+    __syncthreads();   // the group's row: every warp's part published
+    // live columns [jlo, jhi] of the row
+    const int q0 = base + 1;
+    const int jlo = row_ok ? max(0, -q0) : W;
+    const int jhi = min(W - 1, tl - q0);
+    int cin = kNeg;   // the final H of column 1024 gg - 1, unmasked
+    int my_cin = kNeg, up0 = kNeg, up1 = kNeg;
+    int kbest = -1, mbest = kNeg, abest = 0;
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg) {
+      const int* pg = s_pub[i & 1][gg];
+      const int ggc = gg * 1024;
+      int wa = pg[1], wb = pg[2];
+      // the carry term along the warp's live columns peaks at the first
+      // (the last where gap > 0)
+      const int a = max(jlo, ggc), e = min(jhi, ggc + 1023);
+      if (gg > 0 && a <= e) {
+        const int cs = gap <= 0 ? a : e;
+        const int cv = cin + gap * (cs - ggc + 1);
+        if constexpr (PACKED) {
+          if (cv >= 0) wa = max(wa, (cv << KB) + KCOL - cs);
+        } else if (cv > wa || (cv == wa && cs < wb)) {
+          wa = cv;
+          wb = cs;
+        }
+      }
+      if constexpr (PACKED) {
+        kbest = max(kbest, wa);
+      } else if (wa > mbest) {
+        mbest = wa;
+        abest = wb;
+      }
+      if (gg == g) my_cin = cin;
+      if (gg == g + 1) {
+        up0 = max(pg[3], cin + gap);
+        up1 = max(pg[4], cin + 2 * gap);
+      }
+      cin = max(pg[0], cin + gap * 1024);
+    }
+    if constexpr (PACKED) {
+      rmax = kbest >= 0 ? kbest >> KB : kNeg;
+      rarg = KCOL - (kbest & KCOL);
+    } else {
+      rmax = mbest;
+      rarg = abest;
+    }
+    // this warp's cells: the carry from the warps before, LEFT, NEG
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      int h = addmax(my_cin, gap * (jl0 + k + 1), H[k]);
+      const unsigned at = 8u * (k & 3);
+      if (h > M[k]) d[k >> 2] |= (unsigned)kLeft << at;
+      const int p = p0 + k;
+      if (!(row_ok && p >= 0 && p <= tl)) {
+        h = kNeg;
+        d[k >> 2] &= ~(0xffu << at);
+      }
+      H[k] = h;
+    }
+    lft = __shfl_up_sync(kFull, H[C - 1], 1);
+    rt0 = __shfl_down_sync(kFull, H[0], 1);
+    rt1 = __shfl_down_sync(kFull, H[1], 1);
+    auto live = [&](int j) {   // column j of row i
+      const int p = q0 + j;
+      return row_ok && p >= 0 && p <= tl;
+    };
+    if (lane == 0) lft = g > 0 && live(gc - 1) ? my_cin : kNeg;
+    if (lane == 31) {
+      rt0 = g < G - 1 && live(gc + 1024) ? up0 : kNeg;
+      rt1 = g < G - 1 && live(gc + 1025) ? up1 : kNeg;
+    }
+    if (rmax > best) {
+      best = rmax;
+      bi = i;
+      bj = rarg;
+    }
+    const bool stop =
+        i == last_row ||
+        (xd && !(i < ql && (best == 0 || rmax >= best - x_drop)));
+    store_dirs<C>(drow + (size_t)(i - 1) * W, d);
+    if (lane == blk) ckeep = c;
+    if (g == 0 && blk == kStage - 1) crow[i - blk + lane] = ckeep;
+    if (stop) {   // row i is the lane's last
+      if (g == 0 && lane <= blk) crow[i - blk + lane] = ckeep;
+      break;
+    }
+  }
+  cp_async_wait<0>();   // no copy outlives the block
+  if (threadIdx.x == 0) {
+    score[b] = best;
+    best_i[b] = bi;
+    best_j[b] = bj;
+    rows[b] = i;
+    c_last[b] = c;
+  }
+}
+
+// W = 16 .. 1024: one lane a warp, kDpLanes lanes a block; W = 2048 and
+// 4096: one lane a block of W / 1024 warps.
+template <int W, bool PACKED>
+__global__ void __launch_bounds__(W > 1024 ? W / 32 : 32 * kDpLanes)
+dp_adaptive_kernel(AGC_DP_PARAMS) {
+  if constexpr (W > 1024)
+    dp_group<W, PACKED>(AGC_DP_ARGS);
+  else
+    dp_warp<W, PACKED>(AGC_DP_ARGS);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -496,7 +804,8 @@ tb_adaptive_kernel(const uint8_t* __restrict__ dirs,
                    int32_t* __restrict__ sj) {
   constexpr int RS = W + 16;          // a staged dirs row, padded
   constexpr int ROWS = NB * kTile;    // staged rows: row x at x % ROWS
-  static_assert((NB & (NB - 1)) == 0 && NB >= 4, "NB: a power of two >= 4");
+  static_assert(NB == 0 || ((NB & (NB - 1)) == 0 && NB >= 4),
+                "NB: 0 (nothing staged) or a power of two >= 4");
   extern __shared__ __align__(128) uint8_t s_dyn[];
   uint8_t* s_dirs = s_dyn;
   int32_t* s_cen = reinterpret_cast<int32_t*>(s_dyn + ROWS * RS);
@@ -539,13 +848,21 @@ tb_adaptive_kernel(const uint8_t* __restrict__ dirs,
   };
   // tile v's rows have landed: its slot's ((u0 - v) / NB)-th fill
   auto wait_tile = [&](int v) {
-    if (v >= 0) mbar_wait(bar + (v & (NB - 1)), ((u0 - v) / NB) & 1);
+    if (v >= 0)
+      mbar_wait(bar + (v & (NB - 1)), ((u0 - v) / (NB > 0 ? NB : 1)) & 1);
   };
   // centers[min(x, NQ)] for x in the resident rows or x >= NQ
-  auto cen_at = [&](int x) { return x >= NQ ? cen_nq : s_cen[x & (ROWS - 1)]; };
+  auto cen_at = [&](int x) {
+    if constexpr (NB == 0)
+      return __ldg(cb + min(x, NQ));
+    else
+      return x >= NQ ? cen_nq : s_cen[x & (ROWS - 1)];
+  };
 
   const bool walks = i > 0 && max_steps > 0;
-  if (walks) {
+  if constexpr (NB == 0) {
+    if (i > 0) cen_hi = cb[min(i, NQ)];
+  } else if (walks) {
     if (lane < NB) mbar_init(bar + lane, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     __syncwarp();
@@ -570,7 +887,12 @@ tb_adaptive_kernel(const uint8_t* __restrict__ dirs,
     const int jw = jk < 0 ? jk + W : jk;
     const int col = min(max(jw, 0), W - 1);
     const int row = max(min(ik - 1, NQ - 1), 0);
-    const int code = ik > 0 ? s_dirs[(row & (ROWS - 1)) * RS + col] : kStop;
+    int code = kStop;
+    if constexpr (NB == 0) {
+      if (ik > 0) code = __ldg(db + (size_t)row * W + col);
+    } else {
+      code = ik > 0 ? s_dirs[(row & (ROWS - 1)) * RS + col] : kStop;
+    }
     const unsigned nd = __ballot_sync(kFull, code != kDiag);
     const int r = nd ? __ffs(nd) - 1 : 32;    // the run's DIAG moves
     const int take = min(r, max_steps - step);
@@ -612,24 +934,28 @@ tb_adaptive_kernel(const uint8_t* __restrict__ dirs,
       __syncwarp();
     }
     if (end) break;
-    // keep the 32 rows below the walk's row resident
-    const int g = min(i - 1, NQ - 1);
-    while (i > 0 && g < u * kTile) {
-      __syncwarp();   // slot u is free: fetch tile u - NB into it
-      fetch(u - NB);
-      cp_async_wait<NB - 2>();
-      wait_tile(u - 2);
-      __syncwarp();
-      --u;
+    if constexpr (NB > 0) {
+      // keep the 32 rows below the walk's row resident
+      const int g = min(i - 1, NQ - 1);
+      while (i > 0 && g < u * kTile) {
+        __syncwarp();   // slot u is free: fetch tile u - NB into it
+        fetch(u - NB);
+        cp_async_wait<NB - 2>();
+        wait_tile(u - 2);
+        __syncwarp();
+        --u;
+      }
     }
   }
   // the open block of up to 128 moves
   __syncwarp();
   if (lane < ((step & 127) + 3) >> 2)
     mb[(step >> 7) * 32 + lane] = ring[((step >> 7) & 1) * 32 + lane];
-  if (walks) {   // no copy outlives the block
-    cp_async_wait<0>();
-    for (int v = max(u - NB + 1, 0); v <= u - 2; ++v) wait_tile(v);
+  if constexpr (NB > 0) {
+    if (walks) {   // no copy outlives the block
+      cp_async_wait<0>();
+      for (int v = max(u - NB + 1, 0); v <= u - 2; ++v) wait_tile(v);
+    }
   }
   if (lane == 0) {
     n_out[b] = step;
@@ -645,7 +971,8 @@ void launch_dp(bool packed, const uint8_t* q, const uint8_t* t,
                int gap, int x_drop, int32_t* score, int32_t* best_i,
                int32_t* best_j, uint8_t* dirs, int32_t* centers,
                int32_t* rows, int32_t* c_last, cudaStream_t s) {
-  const dim3 grid((B + kDpLanes - 1) / kDpLanes), block(32 * kDpLanes);
+  const dim3 grid(W > 1024 ? B : (B + kDpLanes - 1) / kDpLanes),
+      block(W > 1024 ? W / 32 : 32 * kDpLanes);
   if (packed)
     dp_adaptive_kernel<W, true><<<grid, block, 0, s>>>(
         q, t, qlen, tlen, c0, B, NQ, NT, c_hi, match, mismatch, gap, x_drop,
@@ -704,11 +1031,15 @@ int agc_dp_adaptive(int device, const void* q, const void* t,
     launch_dp<w>(packed != 0, qq, tt, ql, tl, cc, B, NQ, NT, c_hi, match, \
                  mismatch, gap, x_drop, sc, bi, bj, dd, ce, rw, cl, s);   \
     break;
+    AGC_DP_CASE(16)
+    AGC_DP_CASE(32)
     AGC_DP_CASE(64)
     AGC_DP_CASE(128)
     AGC_DP_CASE(256)
     AGC_DP_CASE(512)
     AGC_DP_CASE(1024)
+    AGC_DP_CASE(2048)
+    AGC_DP_CASE(4096)
 #undef AGC_DP_CASE
     default:
       return (int)cudaErrorInvalidValue;
@@ -733,8 +1064,17 @@ int agc_tb_adaptive(int device, const void* dirs, const void* centers,
   auto* ci = static_cast<int32_t*>(si);
   auto* cj = static_cast<int32_t*>(sj);
   auto s = static_cast<cudaStream_t>(stream);
-  // NB tiles of 32 rows: 40-134 KB of shared memory a lane
+  // NB tiles of 32 rows: 17-134 KB of shared memory a lane; past 1024 a
+  // tile is 64 KB or more, and the walk reads global memory (NB = 0)
   switch (W) {
+    case 16:
+      e = launch_tb<16, 16>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv, nn,
+                            ci, cj, s);
+      break;
+    case 32:
+      e = launch_tb<32, 16>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv, nn,
+                            ci, cj, s);
+      break;
     case 64:
       e = launch_tb<64, 16>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv, nn,
                             ci, cj, s);
@@ -753,6 +1093,14 @@ int agc_tb_adaptive(int device, const void* dirs, const void* centers,
       break;
     case 1024:
       e = launch_tb<1024, 4>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv,
+                             nn, ci, cj, s);
+      break;
+    case 2048:
+      e = launch_tb<2048, 0>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv,
+                             nn, ci, cj, s);
+      break;
+    case 4096:
+      e = launch_tb<4096, 0>(dd, ce, bi, bj, B, NQ, max_steps, stride, mv,
                              nn, ci, cj, s);
       break;
     default:

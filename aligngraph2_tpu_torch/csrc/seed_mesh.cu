@@ -53,7 +53,13 @@
 //     one index block side by side in the launch order, its codes in L2
 //     while they run.  The wrapper picks C (sharded.seed_grid);
 //   * the histogram of a stream lives in the cluster's first block: the
-//     others add to it through distributed shared memory.  The lanes of a
+//     others add to it through distributed shared memory.  Past 19,348
+//     bins (hist, dsum and the touched list no longer fit one block's
+//     227 KB) it lives in a global scratch the wrapper allocates, nbins x 3
+//     int32 a (stream, index block) pair, added to by global atomics and
+//     read back through L2 (kGlobal); the wrapper then launches the index
+//     blocks in groups whose scratch fits its budget (blk0, the group's
+//     first).  The lanes of a
 //     warp whose hits fall in one bin (a read's true hits share a
 //     diagonal) add once: __match_any_sync on the bin, __reduce_add_sync
 //     of the diagonals, one atomicAdd a bin.  The bin is a multiply by a
@@ -194,6 +200,17 @@ __device__ __forceinline__ unsigned udiv(unsigned n, Div d) {
   return (t + ((n - t) >> d.s1)) >> d.s2;
 }
 
+// a bin's value: shared memory, or the scratch read through L2 (its adds
+// are atomics there)
+template <bool kGlobal>
+__device__ __forceinline__ int bin_at(const int32_t* p) {
+  if constexpr (kGlobal)
+    return __ldcg(p);
+  else
+    return *p;
+}
+
+template <bool kGlobal>
 __global__ void __launch_bounds__(kSeedThreads)
 seed_block_kernel(const uint8_t* __restrict__ q_fwd,
                   const uint8_t* __restrict__ q_rev,
@@ -202,7 +219,8 @@ seed_block_kernel(const uint8_t* __restrict__ q_fwd,
                   const int32_t* __restrict__ sorted_pos,
                   const int32_t* __restrict__ seed_dir, int NQ, int k,
                   int NB, int L, int nbins, Div bin_div, int occ,
-                  int max_occ, int T, int C, int dsh,
+                  int max_occ, int T, int C, int dsh, int blk0,
+                  int32_t* __restrict__ scratch,
                   int32_t* __restrict__ cnt_out,
                   int32_t* __restrict__ diag_out) {
   extern __shared__ int32_t smem[];   // hist, dsum, touched: nbins each
@@ -211,9 +229,12 @@ seed_block_kernel(const uint8_t* __restrict__ q_fwd,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();   // the positions' slice
   const bool lead = rank == 0;                  // holds the histogram
-  const int s = blockIdx.x / C, blk = blockIdx.y;
+  const int s = blockIdx.x / C, blk = blk0 + blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int32_t* hist = smem;
+  int32_t* hist =
+      kGlobal ? scratch + ((size_t)blockIdx.y * (gridDim.x / C) + s) * 3 *
+                              (size_t)nbins
+              : smem;
   int32_t* dsum = hist + nbins;
   int32_t* touched = dsum + nbins;
   const int32_t* sc = sorted_codes + (size_t)blk * L;
@@ -228,9 +249,10 @@ seed_block_kernel(const uint8_t* __restrict__ q_fwd,
     if (tid == 0) n_touched = 0;
   }
   cluster.sync();   // the zeroed bins
-  int32_t* hist_r = cluster.map_shared_rank(hist, 0);
-  int32_t* dsum_r = cluster.map_shared_rank(dsum, 0);
-  int32_t* touched_r = cluster.map_shared_rank(touched, 0);
+  int32_t* hist_r = kGlobal ? hist : cluster.map_shared_rank(hist, 0);
+  int32_t* dsum_r = kGlobal ? dsum : cluster.map_shared_rank(dsum, 0);
+  int32_t* touched_r =
+      kGlobal ? touched : cluster.map_shared_rank(touched, 0);
   int* n_touched_r = cluster.map_shared_rank(&n_touched, 0);
   const int b = s >> 1;
   const uint8_t* q = ((s & 1) ? q_rev : q_fwd) + (size_t)b * NQ;
@@ -287,12 +309,13 @@ seed_block_kernel(const uint8_t* __restrict__ q_fwd,
   for (int t = 0; t < T; ++t) {
     long long best = -1;
     for (int i = tid; i < nt; i += kSeedThreads) {
-      const int x = touched[i];
-      const int h0 = hist[x];
-      long long key = (long long)(h0 + (x + 1 < nbins ? hist[x + 1] : 0))
-                      * nbins + (nbins - 1 - x);
+      const int x = bin_at<kGlobal>(touched + i);
+      const int h0 = bin_at<kGlobal>(hist + x);
+      long long key =
+          (long long)(h0 + (x + 1 < nbins ? bin_at<kGlobal>(hist + x + 1)
+                                          : 0)) * nbins + (nbins - 1 - x);
       if (key < last) best = max(best, key);
-      if (x > 0 && hist[x - 1] == 0) {   // bin x - 1, not touched
+      if (x > 0 && bin_at<kGlobal>(hist + x - 1) == 0) {   // not touched
         key = (long long)h0 * nbins + (nbins - x);
         if (key < last) best = max(best, key);
       }
@@ -314,8 +337,10 @@ seed_block_kernel(const uint8_t* __restrict__ q_fwd,
     }
     if (tid == 0) {
       const int x = nbins - 1 - (int)(best % nbins);
-      const int h = hist[x] + (x + 1 < nbins ? hist[x + 1] : 0);
-      const int d = wadd(dsum[x], x + 1 < nbins ? dsum[x + 1] : 0);
+      const int h = bin_at<kGlobal>(hist + x) +
+                    (x + 1 < nbins ? bin_at<kGlobal>(hist + x + 1) : 0);
+      const int d = wadd(bin_at<kGlobal>(dsum + x),
+                         x + 1 < nbins ? bin_at<kGlobal>(dsum + x + 1) : 0);
       cnt_out[out + t] = h;
       diag_out[out + t] = wsub(floor_div(d, h), NQ);
     }
@@ -530,28 +555,33 @@ select_candidates_kernel(const int32_t* __restrict__ cnt,
 
 extern "C" {
 
-// streams 2 * read + strand; C blocks a cluster (1, 2, 4 or 8)
+// streams 2 * read + strand; C blocks a cluster (1, 2, 4 or 8); index
+// blocks blk0 .. blk0 + nblk - 1 of NB; the bins in the leader's shared
+// memory, or, given a scratch (nblk x 2B pairs of 3 x nbins int32), there
 int agc_seed_block(int device, const void* q_fwd, const void* q_rev,
                    const void* lens, const void* sorted_codes,
                    const void* sorted_pos, const void* seed_dir, int B,
                    int NQ, int k, int NB, int L, int nbins, int bin_w,
-                   int occ, int max_occ, int T, int C, void* cnt, void* diag,
-                   void* stream) {
+                   int occ, int max_occ, int T, int C, int blk0, int nblk,
+                   void* scratch, void* cnt, void* diag, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0 || k < 1 || k > 15 || NQ < k || NB <= 0 || NB > 65535 ||
       L <= 0 || nbins <= 0 || bin_w <= 0 || T <= 0 || T > nbins ||
       occ < 0 || max_occ < 0 || C < 1 || C > kMaxCluster || (C & (C - 1)) ||
       (long long)2 * B * C > INT_MAX ||
-      (long long)(NQ - k + 1) * occ >= (1ll << 30))
+      (long long)(NQ - k + 1) * occ >= (1ll << 30) || blk0 < 0 ||
+      nblk <= 0 || blk0 + nblk > NB)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 3 * (size_t)nbins * 4;
-  e = cudaFuncSetAttribute(seed_block_kernel,
+  const bool global = scratch != nullptr;
+  const size_t smem = global ? 0 : 3 * (size_t)nbins * 4;
+  auto kernel = global ? seed_block_kernel<true> : seed_block_kernel<false>;
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * B * C, NB);
+  cfg.gridDim = dim3(2 * B * C, nblk);
   cfg.blockDim = dim3(kSeedThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -563,13 +593,14 @@ int agc_seed_block(int device, const void* q_fwd, const void* q_rev,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(
-      &cfg, seed_block_kernel, static_cast<const uint8_t*>(q_fwd),
+      &cfg, kernel, static_cast<const uint8_t*>(q_fwd),
       static_cast<const uint8_t*>(q_rev), static_cast<const int32_t*>(lens),
       static_cast<const int32_t*>(sorted_codes),
       static_cast<const int32_t*>(sorted_pos),
       static_cast<const int32_t*>(seed_dir), NQ, k, NB, L, nbins,
       make_div((unsigned)bin_w), occ, max_occ, T, C,
-      2 * k > kDirBits ? 2 * k - kDirBits : 0, static_cast<int32_t*>(cnt),
+      2 * k > kDirBits ? 2 * k - kDirBits : 0, blk0,
+      static_cast<int32_t*>(scratch), static_cast<int32_t*>(cnt),
       static_cast<int32_t*>(diag));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

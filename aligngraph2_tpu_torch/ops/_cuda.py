@@ -62,9 +62,14 @@ def _load(src: str, signatures: dict) -> ctypes.CDLL:
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SEED_SIGNATURES = {
-    "agc_seed_block": [_ci] + [_vp] * 6 + [_ci] * 11 + [_vp] * 3,
+    "agc_seed_block": [_ci] + [_vp] * 6 + [_ci] * 13 + [_vp] * 4,
     "agc_select_candidates": [_ci] + [_vp] * 4 + [_ci] * 5
     + [_cf, _cf, _ci, _ci, _cf, _ci] + [_vp] * 5}
+
+
+ADAPTIVE_SIGNATURES = {
+    "agc_dp_adaptive": [_ci] + [_vp] * 5 + [_ci] * 10 + [_vp] * 8,
+    "agc_tb_adaptive": [_ci] + [_vp] * 4 + [_ci] * 5 + [_vp] * 5}
 
 
 def get_lib() -> ctypes.CDLL:
@@ -76,9 +81,7 @@ def get_lib() -> ctypes.CDLL:
 
 def get_adaptive_lib() -> ctypes.CDLL:
     """The adaptive-band kernels (``csrc/banded_adaptive.cu``)."""
-    return _load(ADAPTIVE_SRC, {
-        "agc_dp_adaptive": [_ci] + [_vp] * 5 + [_ci] * 10 + [_vp] * 8,
-        "agc_tb_adaptive": [_ci] + [_vp] * 4 + [_ci] * 5 + [_vp] * 5})
+    return _load(ADAPTIVE_SRC, ADAPTIVE_SIGNATURES)
 
 
 def get_seed_lib() -> ctypes.CDLL:

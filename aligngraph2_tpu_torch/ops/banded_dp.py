@@ -51,10 +51,9 @@ import numpy as np
 import torch
 
 NEG = -(1 << 28)
-# the band widths the CUDA kernels take: W/32 columns a thread, at least two
-KERNEL_WIDTHS = (64, 128, 256, 512, 1024)
-# dp_adaptive_kernel's row key: h << KEY_BITS | (2^KEY_BITS - 1 - column)
-KEY_BITS = 10
+# the band widths the CUDA kernels take: every power of two from 16 to
+# 4096 (one warp a lane up to 1024, W / 1024 warps a lane past it)
+KERNEL_WIDTHS = tuple(1 << e for e in range(4, 13))
 
 # direction codes
 STOP, DIAG, UP, LEFT = 0, 1, 2, 3
@@ -295,20 +294,29 @@ def traceback_ref(dirs, centers, best_i, best_j, *, max_steps):
 # the CUDA kernels
 
 
-def packed_key_ok(match: int, NQ: int) -> bool:
+def key_bits(W: int) -> int:
+    """The column bits of dp_adaptive_kernel's row key at band width W
+    (key_bits of the kernel): 10 up to W = 1024, log2 W past it."""
+    return max(10, (W - 1).bit_length())
+
+
+def packed_key_ok(match: int, NQ: int, W: int) -> bool:
     """Whether dp_adaptive_kernel may reduce a row with one packed key,
-    h << KEY_BITS | (2^KEY_BITS - 1 - column): every score of NQ rows is
-    at most max(match, 0) * NQ, so every key fits int32 iff that bound is
-    below 2^(31 - KEY_BITS).  Otherwise the kernel takes two reductions a
-    row (the maximum, then its first column).  A choice by shape."""
-    return max(match, 0) * NQ < 1 << (31 - KEY_BITS)
+    h << key_bits(W) | (2^key_bits(W) - 1 - column): every score of NQ
+    rows is at most max(match, 0) * NQ, so every key fits int32 iff that
+    bound is below 2^(31 - key_bits(W)).  Otherwise the kernel takes two
+    reductions a row (the maximum, then its first column).  A choice by
+    shape."""
+    return max(match, 0) * NQ < 1 << (31 - key_bits(W))
 
 
 def need_width(W: int) -> None:
-    """Raise unless the kernels take band width ``W``."""
+    """Raise unless the kernels take band width ``W``: a power of two
+    from 16 to 4096."""
     if W not in KERNEL_WIDTHS:
-        raise ValueError(f"W={W}: the adaptive-band kernels take W in "
-                         f"{KERNEL_WIDTHS}")
+        raise ValueError(f"W={W}: the adaptive-band kernels take W a power "
+                         f"of two from {KERNEL_WIDTHS[0]} to "
+                         f"{KERNEL_WIDTHS[-1]}")
 
 
 def banded_align(q, qlen, t, tlen, c0, *, W=256, match=2, mismatch=-4,
@@ -353,7 +361,8 @@ def dp_adaptive(q, qlen, t, tlen, c0, *, W, match, mismatch, gap, x_drop):
     code = lib.agc_dp_adaptive(
         index, q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
         c0.data_ptr(), B, NQ, NT, W, c_hi, match, mismatch, gap, x_drop,
-        int(packed_key_ok(match, NQ)), score.data_ptr(), best_i.data_ptr(),
+        int(packed_key_ok(match, NQ, W)), score.data_ptr(),
+        best_i.data_ptr(),
         best_j.data_ptr(), dirs.data_ptr(), centers.data_ptr(),
         rows.data_ptr(), c_last.data_ptr(), stream)
     _cuda.check(lib, code, "dp_adaptive_kernel launch")

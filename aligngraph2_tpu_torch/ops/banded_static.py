@@ -48,13 +48,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .banded_dp import DIAG, LEFT, NEG, STOP, UP, ks_shifts, maxplus_scan
+from .banded_dp import (DIAG, LEFT, NEG, STOP, UP, _loop, ks_shifts,
+                        maxplus_scan)
 
 Q_SENTINEL = 254
 T_SENTINEL = 255
 # the band widths the CUDA kernels take: those the aligner forms,
-# max(band_width, 256) for a power-of-two band_width up to 1024
-KERNEL_WIDTHS = (256, 512, 1024)
+# max(band_width, 256) for a power-of-two band_width from 16 to 4096 (one
+# warp a lane up to 1024, W / 1024 warps a lane past it)
+KERNEL_WIDTHS = tuple(1 << e for e in range(8, 13))
 
 
 class StaticResult(NamedTuple):
@@ -71,7 +73,8 @@ def banded_dp_static_ref(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
     """Plain torch version of the static-band DP, row by row over the
     batch.  q: (B, NQ) uint8 padded with Q_SENTINEL; t: (B, NQ + W) uint8
     standard-frame windows padded with T_SENTINEL; qlen: (B,) int32
-    (defaults to NQ).  Runs on whatever device its inputs are on."""
+    (defaults to NQ).  Runs on whatever device its inputs are on; on a
+    card the rows replay as CUDA graphs of 64 (``banded_dp._loop``)."""
     B, NQ = q.shape
     dev = q.device
     if qlen is None:
@@ -80,17 +83,27 @@ def banded_dp_static_ref(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
     t32 = t.to(torch.int32)
     qlen = qlen.to(torch.int32)
     shifts = ks_shifts(W)
-    H = torch.zeros((B, W), dtype=torch.int32, device=dev)
-    bcol = torch.zeros_like(H)
-    brow = torch.zeros_like(H)
-    acc = torch.zeros_like(H)
     words = torch.zeros((B, NQ // 16, W), dtype=torch.int32, device=dev)
-    rows = torch.full((B,), NQ, dtype=torch.int32, device=dev)
-    alive = torch.ones((B, 1), dtype=torch.bool, device=dev)
-    for i in range(1, NQ + 1):
+    j_idx = torch.arange(W, dtype=torch.int64, device=dev)
+    # 0-d tensors keep the row's values int32
+    match_t, mismatch_t = (torch.tensor(x, dtype=torch.int32, device=dev)
+                           for x in (match, mismatch))
+    zero = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    S = dict(H=zero, bcol=zero.clone(), brow=zero.clone(),
+             acc=zero.clone(),
+             alive=torch.ones((B, 1), dtype=torch.bool, device=dev),
+             rows=torch.full((B,), NQ, dtype=torch.int32, device=dev),
+             i=torch.ones((), dtype=torch.int64, device=dev))   # next row
+
+    def row(S):
+        """DP row S["i"]: the next state; writes the row's direction bits
+        into its word row (complete at every 16th row).  The row index is
+        a tensor, so a CUDA graph can replay it."""
+        i, H, alive = S["i"], S["H"], S["alive"]
+        i1 = (i - 1).view(1)
         up = torch.nn.functional.pad(H[:, 1:], (0, 1), value=NEG)
-        sub = torch.where(t32[:, i - 1:i - 1 + W] == q32[:, i - 1:i],
-                          match, mismatch)
+        sub = torch.where(t32.index_select(1, j_idx + (i - 1))
+                          == q32.index_select(1, i1), match_t, mismatch_t)
         d_v = H + sub
         u_v = up + gap
         M = torch.maximum(d_v, u_v)
@@ -99,37 +112,42 @@ def banded_dp_static_ref(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,
         M = M.clamp(min=0)
         Hn = maxplus_scan(M, gap, shifts)
         code = torch.where(Hn > M, LEFT, m_dir).to(torch.int32)
-        upd = Hn > bcol
+        upd = Hn > S["bcol"]
         if x_drop > 0:
             Hn = torch.where(alive, Hn, H)
             upd = upd & alive
-        bcol = torch.where(upd, Hn, bcol)
-        brow = torch.where(upd, i, brow).to(torch.int32)
-        acc = acc | (code << (2 * ((i - 1) % 16)))
-        if i % 16 == 0:
-            if x_drop > 0:
-                acc = torch.where(alive, acc, 0).to(torch.int32)
-            words[:, (i - 1) // 16] = acc
-            acc = torch.zeros_like(acc)
-        H = Hn
-        if x_drop > 0 and i % K == 0 and i < NQ:
-            front = H.amax(dim=1, keepdim=True)
-            best = bcol.amax(dim=1, keepdim=True)
+        acc = S["acc"] | (code << (2 * ((i - 1) % 16)).to(torch.int32))
+        word = torch.where(alive, acc, 0) if x_drop > 0 else acc
+        words.index_copy_(1, i1 // 16, word[:, None])
+        nxt = dict(S, H=Hn, i=i + 1,
+                   bcol=torch.where(upd, Hn, S["bcol"]),
+                   brow=torch.where(upd, i.to(torch.int32), S["brow"]),
+                   acc=torch.where(i % 16 == 0, 0, acc))
+        if x_drop > 0:
+            # every K rows, before the last: a lane lives iff row i+1 <=
+            # qlen and (best == 0 or its front is within x_drop of best)
+            front = Hn.amax(dim=1, keepdim=True)
+            best = nxt["bcol"].amax(dim=1, keepdim=True)
             ok = (i + 1 <= qlen[:, None]) \
                 & ((best == 0) | (front >= best - x_drop))
-            died = alive & ~ok
-            rows = torch.where(died[:, 0], i, rows).to(torch.int32)
-            alive = alive & ok
-            if not bool(alive.any()):
-                break
-    S = bcol.amax(dim=1)
-    mask = bcol == S[:, None]
+            died = alive & ~ok & ((i % K == 0) & (i < NQ))
+            nxt["rows"] = torch.where(died[:, 0], i.to(torch.int32),
+                                      S["rows"])
+            nxt["alive"] = alive & ~died
+        return nxt
+
+    # a lane that died is frozen, so rows run after every lane died change
+    # nothing; asking every 64 rows gives the early stop's result
+    _loop(row, S, NQ, lambda S: x_drop > 0 and not bool(S["alive"].any()))
+    bcol, brow = S["bcol"], S["brow"]
+    score = bcol.amax(dim=1)
+    mask = bcol == score[:, None]
     istar = torch.where(mask, brow, 1 << 30).amin(dim=1)
-    j_idx = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-    jstar = torch.where(mask & (brow == istar[:, None]), j_idx, W).amin(dim=1)
-    istar = torch.where(S > 0, istar, 0).to(torch.int32)
-    jstar = torch.where(S > 0, jstar, 0).to(torch.int32)
-    return StaticResult(S, istar, jstar, words, rows)
+    jstar = torch.where(mask & (brow == istar[:, None]),
+                        j_idx[None, :].to(torch.int32), W).amin(dim=1)
+    istar = torch.where(score > 0, istar, 0).to(torch.int32)
+    jstar = torch.where(score > 0, jstar, 0).to(torch.int32)
+    return StaticResult(score, istar, jstar, words, S["rows"])
 
 
 def traceback_static_ref(words, best_i, best_j, *, max_steps):
@@ -138,15 +156,16 @@ def traceback_static_ref(words, best_i, best_j, *, max_steps):
     Returns (moves (B, max_steps) uint8 END->START, n_moves, start_i,
     start_j), as ``traceback_t``; the alignment's target start in the
     window is start_i + start_j.  Stops early once every lane has stopped
-    (checked every 64 steps)."""
+    (checked every 64 steps); on a card the steps replay as CUDA graphs
+    of 64."""
     B, NW, W = words.shape
     dev = words.device
     lanes = torch.arange(B, device=dev)
-    i = best_i.to(torch.int32).clone()
-    j = best_j.to(torch.int32).clone()
-    active = torch.ones(B, dtype=torch.bool, device=dev)
     moves = torch.zeros((B, max_steps), dtype=torch.uint8, device=dev)
-    for step in range(max_steps):
+
+    def walk(S):
+        """One move of every lane, written at column S["step"]."""
+        i, j, active = S["i"], S["j"], S["active"]
         ii = (i - 1).clamp(min=0)
         word = words[lanes, (ii >> 4).clamp(0, NW - 1).long(),
                      j.clamp(0, W - 1).long()]
@@ -156,19 +175,27 @@ def traceback_static_ref(words, best_i, best_j, *, max_steps):
         nj = torch.where(cur == LEFT, j - 1,
                          torch.where(cur == DIAG, j, j + 1))
         live = active & (cur != STOP)
-        i = torch.where(live, ni, i)
-        j = torch.where(live, nj, j)
-        active = live
-        moves[:, step] = cur.to(torch.uint8)
-        if step % 64 == 63 and not bool(active.any()):
-            break
+        moves.index_copy_(1, S["step"].long().view(1),
+                          cur.to(torch.uint8)[:, None])
+        return dict(i=torch.where(live, ni, i), j=torch.where(live, nj, j),
+                    active=live, step=S["step"] + 1)
+
+    S = dict(i=best_i.to(torch.int32).clone(),
+             j=best_j.to(torch.int32).clone(),
+             active=torch.ones(B, dtype=torch.bool, device=dev),
+             step=torch.zeros((), dtype=torch.int32, device=dev))
+    _loop(walk, S, max_steps, lambda S: not bool(S["active"].any()))
     n = (moves != 0).sum(dim=1, dtype=torch.int32)
-    return moves, n, i, j
+    return moves, n, S["i"], S["j"]
 
 
 def _need_width(W: int) -> None:
+    """Raise unless the kernels take band width ``W``: a power of two
+    from 256 to 4096."""
     if W not in KERNEL_WIDTHS:
-        raise ValueError(f"W={W}: the kernels take W in {KERNEL_WIDTHS}")
+        raise ValueError(f"W={W}: the static-band kernels take W a power "
+                         f"of two from {KERNEL_WIDTHS[0]} to "
+                         f"{KERNEL_WIDTHS[-1]}")
 
 
 def banded_dp_static(q, t, qlen=None, *, W, K=64, match=2, mismatch=-4,

@@ -75,8 +75,11 @@ _SEED_CELLS = 1 << 22
 SELECT_SHARED_SLOTS = 1 << 14
 # the dynamic shared memory a block of seed_block_kernel may take (its
 # bins): 227 KB less its static arrays (the top-T rounds' two reduction
-# rows and the touched count)
+# rows and the touched count); past it the bins go to a global scratch
 SEED_SMEM_MAX = 232448 - 272
+# the bins' scratch one launch of seed_block_kernel may take when they are
+# past SEED_SMEM_MAX: the index blocks go in groups that fit it
+SEED_SCRATCH_BYTES = 1 << 29
 # seed_block_kernel's directory of a block's codes: 2^SEED_DIR_BITS code
 # ranges (kDirBits); its threads a block (kSeedThreads)
 SEED_DIR_BITS = 16
@@ -323,9 +326,27 @@ def _need_int32(**values) -> None:
 
 
 def seed_smem_bytes(nbins: int) -> int:
-    """seed_block_kernel's dynamic shared memory: hist, dsum and the
-    touched bins' list, nbins int32 each."""
+    """The bytes of one (stream, index block) pair's bins in
+    seed_block_kernel: hist, dsum and the touched bins' list, nbins int32
+    each."""
     return 3 * nbins * 4
+
+
+def seed_bins_in_scratch(nbins: int) -> bool:
+    """Whether seed_block_kernel keeps a pair's bins in a global scratch
+    (they pass SEED_SMEM_MAX, 19,348 bins) rather than in its cluster
+    leader's shared memory."""
+    return seed_smem_bytes(nbins) > SEED_SMEM_MAX
+
+
+def seed_launch_blocks(NB: int, S: int, nbins: int) -> int:
+    """The index blocks one launch of seed_block_kernel takes for S
+    streams: all NB when the bins are in shared memory, else as many as
+    SEED_SCRATCH_BYTES holds at seed_smem_bytes(nbins) a (stream, block)
+    pair, at least one."""
+    if not seed_bins_in_scratch(nbins):
+        return NB
+    return max(1, min(NB, SEED_SCRATCH_BYTES // (S * seed_smem_bytes(nbins))))
 
 
 def seed_dir_shift(k: int) -> int:
@@ -377,8 +398,10 @@ def seed_block(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos, seed_dir,
     (NB_l, L) and their :func:`seed_directory` for this k, all on one
     card and contiguous.  Both strands' k-mer codes are made in the
     kernel.  Returns contiguous cnt and diag (B, 2, NB_l, T) int32.
-    Raises on any input the kernel does not take, among them bins past
-    SEED_SMEM_MAX."""
+    Any nbins: past SEED_SMEM_MAX the bins are in a scratch allocated
+    here, and the index blocks go in launches of
+    :func:`seed_launch_blocks` each (each launch counts).  Raises on any
+    input the kernel does not take."""
     from ..ops import _cuda
     B, NQ_ = q_fwd.shape
     NB, L = sorted_codes.shape
@@ -390,32 +413,37 @@ def seed_block(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos, seed_dir,
     _cuda.need(sorted_pos, "sorted_pos", torch.int32, (NB, L), dev)
     _cuda.need(seed_dir, "seed_dir", torch.int32,
                (NB, (1 << SEED_DIR_BITS) + 3), dev)
-    _need_int32(NQ=NQ, occ=occ, max_occ=max_occ)
-    smem = seed_smem_bytes(nbins)
+    _need_int32(NQ=NQ, occ=occ, max_occ=max_occ, nbins=nbins)
     NK = NQ - k + 1
     if not (NQ_ == NQ and 0 < B and 1 <= k <= 15 and NK > 0
             and 0 < NB <= 65535 and L > 0 and bin_w > 0
             and 0 < top_t <= nbins and occ >= 0 and max_occ >= 0
-            and NK * occ < 1 << 30 and smem <= SEED_SMEM_MAX):
+            and NK * occ < 1 << 30):
         raise ValueError(
             f"B={B}, NQ={NQ} (q: {NQ_}), k={k}, NB={NB}, L={L}, "
             f"bin_w={bin_w}, top_t={top_t}, nbins={nbins}, occ={occ}, "
             f"max_occ={max_occ}: need q's width NQ, B, L and bin_w "
             f"positive, 1 <= k <= min(15, NQ), NB <= 65535, 0 < top_t <= "
-            f"nbins, occ and max_occ >= 0, (NQ - k + 1) * occ < 2^30, and "
-            f"{smem} bytes of bins within {SEED_SMEM_MAX}")
+            f"nbins, occ and max_occ >= 0, (NQ - k + 1) * occ < 2^30")
     lib = _cuda.get_seed_lib()
     cnt, diag = (torch.empty((B, 2, NB, top_t), dtype=torch.int32,
                              device=dev) for _ in range(2))
+    per = seed_launch_blocks(NB, 2 * B, nbins)
+    scratch = (torch.empty(per * 2 * B * 3 * nbins, dtype=torch.int32,
+                           device=dev)
+               if seed_bins_in_scratch(nbins) else None)
     index, stream = _cuda.launch_target(dev)
-    code = lib.agc_seed_block(
-        index, q_fwd.data_ptr(), q_rev.data_ptr(), read_lens.data_ptr(),
-        sorted_codes.data_ptr(), sorted_pos.data_ptr(), seed_dir.data_ptr(),
-        B, NQ, k, NB, L, nbins, bin_w, occ, max_occ, top_t,
-        seed_grid(NB, 2 * B, NK, _cuda.sm_count(index)), cnt.data_ptr(),
-        diag.data_ptr(), stream)
-    _cuda.check(lib, code, "seed_block_kernel launch")
-    seed_block.launches += 1
+    C = seed_grid(NB, 2 * B, NK, _cuda.sm_count(index))
+    for b0 in range(0, NB, per):
+        code = lib.agc_seed_block(
+            index, q_fwd.data_ptr(), q_rev.data_ptr(), read_lens.data_ptr(),
+            sorted_codes.data_ptr(), sorted_pos.data_ptr(),
+            seed_dir.data_ptr(), B, NQ, k, NB, L, nbins, bin_w, occ,
+            max_occ, top_t, C, b0, min(per, NB - b0),
+            None if scratch is None else scratch.data_ptr(),
+            cnt.data_ptr(), diag.data_ptr(), stream)
+        _cuda.check(lib, code, "seed_block_kernel launch")
+        seed_block.launches += 1
     return cnt, diag
 
 

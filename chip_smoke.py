@@ -14,21 +14,25 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
   gate    each CUDA kernel against its plain torch version on the card, on
           planted lanes (B=1024, NQ=8192; W=256 and 512; x_drop 0 and
           250; the aligner's batch for the 16384 bucket, B=384, W=256,
-          x_drop 250; and W=1024 on B=256, NQ=4096): score, best cell,
+          x_drop 250; W=1024 on B=256, NQ=4096; and W=2048 and 4096,
+          a group of warps a lane, on B=128, NQ=8192): score, best cell,
           rows run, directions on rows <= best_i, moves, move count and
           start, all exact; the traceback also on random direction words,
           whose walks hit both band edges; kernel times, plain times,
           bounds and registers;
   adaptive_gate the adaptive band's two kernels against their plain
           torch versions on the card (B=32, NQ=8192, W=256 at x_drop 250
-          and 0; B=8, NQ=32768; W=64, 128, 512 and 1024 at B=16,
-          NQ=4096), on lanes with indel drift, clustered x_drop deaths,
-          short reads and windows, c0 at both clips and one lane whose
-          walk is a single DIAG run: score, best cell, every row of dirs
-          and centers, moves, move count and start (also with max_steps
-          cutting walks, inside that run too), all exact; kernel and
-          plain times, cycles a row and a move, bounds and registers per
-          shape;
+          and 0; B=8, NQ=32768; W=64, 128, 512, 1024, 16, 32, 2048 and
+          4096 at B=16, NQ=4096), on lanes with indel drift, clustered
+          x_drop deaths, short reads and windows, c0 at both clips and
+          one lane whose walk is a single DIAG run: score, best cell,
+          every row of dirs and centers, moves, move count and start
+          (also with max_steps cutting walks, inside that run too), all
+          exact; kernel and plain times, cycles a row and a move, bounds
+          and registers per shape; at the first W=256 and W=2048 shape
+          the cycles a row by phase of lane 0 from a clock64() copy of
+          the source run through the same wrapper (its outputs exact
+          too);
   stage   stages 2, 3 (with the seed rescue) and 4 of the pipeline on a
           synthetic PacBio dataset, on CUDA at full width, with walls,
           reads/s, DP cells and alignments; launch counts are zeroed before
@@ -59,9 +63,12 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
           strand's kmer_codes_batch, then the plain histogram) on the
           card, every output exact: on the mesh phase's block index and
           reads, B=32 at NQ=8192 and B=16 at NQ=16384 (bin_w 128), and
-          B=8 contig pieces at NQ=131072, bin_w 32; and B=32 pieces of a
+          B=8 contig pieces at NQ=131072, bin_w 32; B=32 pieces of a
           synthetic 600-block genome (sorted on the card, 1 GB of index)
-          at NQ=8192; the grid, kernel and plain ms, bound and latency
+          at NQ=8192; and B=32 at NQ=8192 and B=8 at NQ=131072, bin_w 32,
+          on the 1 Mb blocks of a synthetic 5.5 Mb genome (~31,500 and
+          ~35,300 bins, in the scratch); the grid, kernel and plain ms,
+          bound and latency
           model, and the cycles a thread by phase of a clocked copy of
           the kernel (also exact) run through the same wrapper;
   select_gate the dedup kernel against its plain version on the card:
@@ -76,6 +83,18 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
           grow at most 4x from 12,800 to 32,768;
   profile stage 2 again under torch.profiler: host spans, device time
           by kernel, the card's idle share;
+  widths  the entry points at the widths past the defaults, each run's
+          launch counts zeroed before it and read after it, no plain
+          version on the card: LongReadAligner at band_width 2048, the
+          stage dataset's first 200 reads to the contigs (the static
+          band at W=2048) and the long read (the adaptive band at 2048),
+          each .ref text equal to the plain versions' on the card; and
+          the mesh path at band_width 32 on 1 Mb blocks, 200 reads of
+          the pipeline phase's dataset to its similar genome (the
+          seeder's ~31,500 bins in the scratch, the extender at W=32),
+          its first 32 reads equal to the CPU's (a third child process);
+          per run reads, reads/s, wall and each kernel's launches and
+          card ms a launch by name and W from a profiled rerun;
   pipeline the whole eight-stage pipeline through run_pipeline on CUDA,
           with the config the CLI builds from its default flags and the
           merge and consensus switches at ``device``, on a 5 Mb PacBio
@@ -102,9 +121,9 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
           must be byte-identical;
   total   the script's wall so far;
   kernels one entry per CUDA kernel with its launches (the static
-          band's in the pipeline phase, the adaptive band's in the mesh
-          and long_read phases, the seeder's in the mesh phase), error,
-          times and bound.
+          band's in the pipeline and widths phases, the adaptive band's
+          in the long_read, mesh and widths phases, the seeder's in the
+          mesh and widths phases), error, times and bound.
 
 then the card's name and power limit as nvidia-smi prints them and, last,
 {"ok": true, "device": {...}}.  Any failure exits nonzero before that
@@ -139,14 +158,24 @@ GATE_B, GATE_NQ = 1024, 8192   # the aligner's largest batch, PacBio bucket
 GATE = ((GATE_B, GATE_NQ, 256, 0), (GATE_B, GATE_NQ, 256, 250),
         (GATE_B, GATE_NQ, 512, 0), (GATE_B, GATE_NQ, 512, 250),
         (384, 16384, 256, 250),   # the aligner's batch for the 16384 bucket
-        (256, 4096, 1024, 250))   # the widest band the kernels take
+        (256, 4096, 1024, 250),   # the widest band of one warp a lane
+        # the aligner's batch at band_width 2048 and 4096 (a group of
+        # warps a lane; 0.5 and 1 GiB of words)
+        (128, GATE_NQ, 2048, 250), (128, GATE_NQ, 4096, 250))
 # (B, NQ, W, x_drop) of the adaptive gate, NT = NQ + 2W: the mesh
 # extender's lanes at the 8192 and 32768 buckets (the kernels line reads
 # the first), the first at x_drop 0, and every other band the kernels take
+# (one column a thread at 16 and 32, a group of warps a lane at 2048 and
+# 4096)
 ADAPTIVE_GATE = ((32, 8192, 256, 250), (8, 32768, 256, 250),
                  (32, 8192, 256, 0), (16, 4096, 64, 250),
                  (16, 4096, 128, 250), (16, 4096, 512, 250),
-                 (16, 4096, 1024, 250))
+                 (16, 4096, 1024, 250), (16, 4096, 16, 250),
+                 (16, 4096, 32, 250), (16, 4096, 2048, 250),
+                 (16, 4096, 4096, 250))
+# the widths at whose first gate shape the clocked copy of the adaptive
+# DP runs: one warp a lane, and a group of two
+ADAPTIVE_CLOCKED = (256, 2048)
 DIAG_LANE = 7   # the adaptive gate's lane whose walk is one DIAG run
 # one DP row's dependent chain on the card, a model: ten warp-wide steps
 # (two reductions, the neighbour and query shuffles, five scan shuffles
@@ -160,6 +189,15 @@ REPS = 5
 PLAIN_READS = 200
 MESH_CPU_READS = 32            # the mesh phase's first reads, also on
                                # the CPU (the card takes all of them)
+# the widths phase: band_width 2048 on one device (the static band at
+# W = 2048 for the stage dataset's first WIDTHS_READS reads, the adaptive
+# band at 2048 for the long read), and the mesh path at band_width 32 on
+# 1 Mb blocks (bin_w 32: ~31,500 bins, past one block's shared memory)
+# for WIDTHS_READS reads of the pipeline phase's dataset to its similar
+# genome (its first MESH_CPU_READS also on the CPU)
+WIDTHS_BAND = 2048
+WIDTHS_MESH = dict(band_width=32, block_size=1_000_000)
+WIDTHS_READS = 200
 MERGE_SWEEP_ROWS = (10 ** 5, 10 ** 6, 10 ** 7)
 # the pipeline phase's dataset: bench_e2e.py's 5 Mb PacBio recipe
 PIPELINE_DATA = dict(genome_len=5_000_000, coverage=20, mean_read=9000,
@@ -193,14 +231,19 @@ DEVICE_FUNCTIONS = {
     "_chain_sort": "aligngraph2_tpu/consensus/device.py:306"}
 # each function of the mesh path (parallel/sharded.py): the XLA function
 # it replaces
-# (reads B, NQ, bin_w, index blocks) of the seed gate, each launch seeding
-# both strands of B reads: the mesh phase's 8192 and 16384 buckets on its
-# index (blocks 0; the kernels line reads the first), the widest bins at
-# the longest bucket, where hist and dsum take more than 48 KB of shared
-# memory, and the first bucket against a synthetic index of 600 blocks of
-# the mesh's block length and overlap (a 90 Mb genome; 1 GB on the card)
-SEED_GATE = ((32, 8192, 128, 0), (16, 16384, 128, 0), (8, 131072, 32, 0),
-             (32, 8192, 128, 600))
+# (reads B, NQ, bin_w, index blocks, block length) of the seed gate, each
+# launch seeding both strands of B reads: the mesh phase's 8192 and 16384
+# buckets on its index (blocks 0; the kernels line reads the first), the
+# widest bins at the longest bucket, where hist and dsum take more than
+# 48 KB of shared memory, and the first bucket against a synthetic index
+# of 600 blocks of the mesh's block length and overlap (block length 0; a
+# 90 Mb genome, 1 GB on the card); then the bins past one block's shared
+# memory (the scratch): the 8192 bucket and the contig pieces' 131072 at
+# bin_w 32 against the 1 Mb blocks of a 5.5 Mb genome (-b 1000, ~31,500
+# and ~35,300 bins)
+SEED_GATE = ((32, 8192, 128, 0, 0), (16, 16384, 128, 0, 0),
+             (8, 131072, 32, 0, 0), (32, 8192, 128, 600, 0),
+             (32, 8192, 32, 7, 1_000_000), (8, 131072, 32, 7, 1_000_000))
 SEED_OCC, SEED_MAX_OCC = 4, 256
 # N candidates a read in the select gate: 1 Mb (6 blocks), 5 Mb (34),
 # 120 Mb (800) and ~300 Mb (2,048) targets at K = 8 (the kernels line
@@ -267,6 +310,7 @@ def build_all() -> dict:
             "banded_adaptive.cu": _cuda.get_adaptive_lib,
             "seed_mesh.cu": _cuda.get_seed_lib,
             "seed_mesh.cu, clocked": seed_clock_lib,
+            "banded_adaptive.cu, clocked": adaptive_clock_lib,
             "fastio.cpp": io_native.get_lib,
             "seedhits.cpp": ops_native.get_lib,
             "ingest.cpp": ingest_native.get_lib,
@@ -587,13 +631,19 @@ def adaptive_bounds(rows, B, NQ, W, steps, max_steps):
     per-lane scalars.  Traceback: TB_OPS_PER_STEP a move; a direction byte
     and a centre read a move, the dense moves written, per-lane scalars.
     Latency: the longest lane's rows (moves) times one row's (move's)
-    dependent chain."""
+    dependent chain (ten warp steps of ~30 cycles, three dependent
+    operations of ~4 cycles a column of the thread, and past W = 1024
+    the group's barrier and its reads of the other warps' values)."""
     rows_all = int(rows.sum())
     cells = rows_all * W
     dp_bytes = 2 * rows_all + B * W + cells + B * (NQ + 1) * 4 + B * 4 * 7
     dp_ops_ms = cells * DP_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
     dp_bytes_ms = dp_bytes / HBM_BYTES_PER_S * 1e3
-    row_chain = 10 * 30 + 3 * 4 * (W // 32)
+    # a thread's columns (one at W <= 32, 32 in a group of warps), and
+    # past W = 1024 the group's barrier (~40 cycles) and a shared read
+    # of each warp's values (~30 cycles a warp)
+    row_chain = (10 * 30 + 3 * 4 * min(max(W // 32, 1), 32)
+                 + (40 + 30 * (W // 1024) if W > 1024 else 0))
     dp_lat_ms = int(rows.max()) * row_chain / SM_CLOCK_HZ * 1e3
     n_steps = int(steps.sum())
     tb_bytes = 5 * n_steps + B * max_steps + B * 4 * 7
@@ -623,6 +673,7 @@ def adaptive_gate(args, regs) -> dict:
     rng = np.random.default_rng(args.seed + 2)
     err = {"dp": 0, "tb": 0}
     timing = {}
+    clocked = set()
     for B, NQ, W, x_drop in ADAPTIVE_GATE:
         NT = NQ + 2 * W
         lanes = tuple(torch.from_numpy(x).to(dev) for x in diag_lane(
@@ -651,6 +702,14 @@ def adaptive_gate(args, regs) -> dict:
                 differ("tb", f"{name}@{max_steps}", a, r)
             walks[max_steps] = (tb, ms)
         tb, plain_tb_ms = walks[NQ + NT]
+        split = None
+        if W in ADAPTIVE_CLOCKED and W not in clocked:
+            clocked.add(W)
+            split, cres = adaptive_phase_split(
+                W, lambda: bd.banded_align(*lanes, **kw))
+            for name in bd.BandedResult._fields:
+                differ("dp", f"clocked {name}", getattr(cres, name),
+                       getattr(ref, name))
         _, rows = bd.dp_adaptive(*lanes, match=2, mismatch=-4, gap=-3, **kw)
         dp_ms = cuda_ms(lambda: bd.banded_align(*lanes, **kw), REPS)
         tb_ms = cuda_ms(lambda: bd.traceback(
@@ -686,6 +745,7 @@ def adaptive_gate(args, regs) -> dict:
               "tb_bound_ms": tb_b, "tb_bound_by": tb_by,
               "tb_latency_bound_ms": tb_lat, "tb_moves": int(tb[1].sum()),
               "tb_longest_walk": int(tb[1].max()),
+              "dp_phase_split": split,
               "regs": {k: v for k, v in regs.items()
                        if k.startswith((f"dp_adaptive_kernel<{W},",
                                         f"tb_adaptive_kernel<{W},"))}})
@@ -859,6 +919,7 @@ def slice_run(args, pool):
     # here on, beside host-bound work whose walls are not metrics
     on_cpu = pool.submit(long_read_on_cpu, args.seed)
     mesh_cpu = pool.submit(mesh_on_cpu, args.seed, args.genome_mb)
+    widths_cpu = pool.submit(widths_mesh_on_cpu, args.seed)
     # the first reads through the kernels and through the plain versions
     ids = range(min(PLAIN_READS, n_reads))
     t0 = time.perf_counter()
@@ -873,7 +934,7 @@ def slice_run(args, pool):
     if not same or not len(kern):
         raise SystemExit("kernel and plain .ref text differ")
     profile_stage(lambda: LongReadAligner(ctgs, cfg).align_reads(reads))
-    return on_cpu, mesh_cpu, reads, ctgs
+    return on_cpu, mesh_cpu, widths_cpu, reads, ctgs
 
 
 def long_read_dbs(seed):
@@ -1233,6 +1294,148 @@ def phase_split(kernel, run):
             "cycles": cycles}, out
 
 
+# clock64() phase timers for a copy of csrc/banded_adaptive.cu
+# (adaptive_clock_lib): per form of a lane, (text, replacement) edits
+# inside that form's function (each text found exactly once there).
+# CLK(k) adds the thread's cycles since its last mark to phase k; thread
+# 0 of lane 0 (warp 0 of the group past W = 1024) keeps its sums in
+# g_clk[0 .. 8] and its rows in g_clk[15].
+ADAPTIVE_CLOCK_HEAD = """
+__device__ long long g_clk[16];
+#define CLK(k) do { long long t_ = clock64(); clk_[k] += t_ - tp_; \\
+                    tp_ = t_; } while (0)
+"""
+ADAPTIVE_CLOCK_TAIL = """
+extern "C" int agc_read_clk(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_clk, sizeof(long long) * 16);
+}
+"""
+_ACLK_INIT = "  long long clk_[9] = {}; long long tp_ = clock64();\n"
+_ACLK_SAVE = ("  if (b == 0 && threadIdx.x == 0) {\n"
+              "    for (int k_ = 0; k_ < 9; ++k_) g_clk[k_] = clk_[k_];\n"
+              "    g_clk[15] = i;\n  }\n")
+# each form: (its function's first line, the text after its end)
+ADAPTIVE_CLOCK_REGIONS = {
+    "dp_warp": ("__device__ __forceinline__ void dp_warp(",
+                "__device__ __forceinline__ void dp_group("),
+    "dp_group": ("__device__ __forceinline__ void dp_group(",
+                 "dp_adaptive_kernel(AGC_DP_PARAMS) {")}
+ADAPTIVE_PHASES = {
+    "dp_warp": ("reduction issued; stage (every 32 rows)",
+                "target compares, 3 drifts",
+                "reduction's result, best cell, stop",
+                "drift; eq and predecessor selects",
+                "M and direction codes", "serial prefix",
+                "shuffle scan and carry", "fix-up, keys",
+                "stores, neighbour shuffles"),
+    "dp_group": ("stage (every 32 rows), target compares",
+                 "drift, predecessors, M and direction codes",
+                 "own gap chain, keys, warp reduction",
+                 "publish and the group's barrier",
+                 "across the warps: carries, row best, fix-up, neighbours",
+                 "best cell, stop, stores")}
+ADAPTIVE_CLOCK_EDITS = {
+    "dp_warp": (
+        ("  int i = 0;         // the last row computed\n",
+         "  int i = 0;         // the last row computed\n" + _ACLK_INIT),
+        ("      qn = qx < NQ ? qrow[qx] : 0u;\n    }\n",
+         "      qn = qx < NQ ? qrow[qx] : 0u;\n    }\n    CLK(0);\n"),
+        ("qrep);\n    }\n", "qrep);\n    }\n    CLK(1);\n"),
+        ("    ++i;\n", "    CLK(2);\n    ++i;\n"),
+        ("    int M[C];\n", "    CLK(3);\n    int M[C];\n"),
+        ("    // gap chain: serial prefix",
+         "    CLK(4);\n    // gap chain: serial prefix"),
+        ("    int x = H[C - 1];\n", "    CLK(5);\n    int x = H[C - 1];\n"),
+        ("    const int p0 = base + 1 + j0;\n",
+         "    CLK(6);\n    const int p0 = base + 1 + j0;\n"),
+        ("    if (stop) {", "    CLK(7);\n    if (stop) {"),
+        ("    row_reduce<C, PACKED>(H, key, j0, ra, rb);\n  }\n  cp_async",
+         "    CLK(8);\n    row_reduce<C, PACKED>(H, key, j0, ra, rb);\n"
+         "  }\n  cp_async"),
+        ("  cp_async_wait<0>();   // no copy outlives the warp\n",
+         "  cp_async_wait<0>();   // no copy outlives the warp\n"
+         + _ACLK_SAVE)),
+    "dp_group": (
+        ("  int i = 0;                // the last row computed\n",
+         "  int i = 0;                // the last row computed\n"
+         + _ACLK_INIT),
+        ("    ++i;   // row i", "    CLK(0);\n    ++i;   // row i"),
+        ("    // the warp's own gap chain",
+         "    CLK(1);\n    // the warp's own gap chain"),
+        ("    int* pub = s_pub", "    CLK(2);\n    int* pub = s_pub"),
+        ("every warp's part published\n",
+         "every warp's part published\n    CLK(3);\n"),
+        ("    if (rmax > best) {", "    CLK(4);\n    if (rmax > best) {"),
+        ("    if (stop) {", "    CLK(5);\n    if (stop) {"),
+        ("  cp_async_wait<0>();   // no copy outlives the block\n",
+         "  cp_async_wait<0>();   // no copy outlives the block\n"
+         + _ACLK_SAVE))}
+
+
+def clocked_adaptive_source(src: str) -> str:
+    """``src`` (csrc/banded_adaptive.cu) with the phase timers of
+    ADAPTIVE_CLOCK_EDITS, each form's inside its own function, and the C
+    function agc_read_clk (the 16 values of g_clk)."""
+    if src.count("namespace {\n") != 1:
+        raise ValueError("no single anonymous namespace")
+    src = src.replace("namespace {\n", "namespace {\n" + ADAPTIVE_CLOCK_HEAD)
+    for form, (first, after) in ADAPTIVE_CLOCK_REGIONS.items():
+        a = src.index(first)
+        e = src.index(after, a + len(first))
+        part = src[a:e]
+        for text, new in ADAPTIVE_CLOCK_EDITS[form]:
+            if part.count(text) != 1:
+                raise ValueError(f"{part.count(text)} occurrences of "
+                                 f"{text!r} in {form}")
+            part = part.replace(text, new)
+        src = src[:a] + part + src[e:]
+    return src + ADAPTIVE_CLOCK_TAIL
+
+
+def adaptive_clock_lib():
+    """The clocked copy of csrc/banded_adaptive.cu, built once into the
+    gitignored build directory and loaded with the committed build's
+    signatures."""
+    import ctypes
+    from aligngraph2_tpu_torch.ops import _cuda
+    from aligngraph2_tpu_torch.utils.nativebuild import BUILD_DIR
+    if not hasattr(adaptive_clock_lib, "lib"):
+        with open(_cuda.ADAPTIVE_SRC) as f:
+            src = clocked_adaptive_source(f.read())
+        path = os.path.join(BUILD_DIR, "clock", "banded_adaptive_clock.cu")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(src)
+        adaptive_clock_lib.lib = _cuda.open_lib(path, {
+            **_cuda.ADAPTIVE_SIGNATURES, "agc_read_clk": [ctypes.c_void_p]})
+    return adaptive_clock_lib.lib
+
+
+def adaptive_phase_split(W, run):
+    """One call of ``run`` (a call of banded_align) with the wrapper's
+    library swapped for :func:`adaptive_clock_lib`: ({"lane0_rows",
+    "cycles_per_row", "cycles": {phase: cycles a row}} of lane 0's first
+    thread, the call's output)."""
+    import ctypes
+    import torch
+    from aligngraph2_tpu_torch.ops import _cuda
+    lib = adaptive_clock_lib()
+    committed = _cuda.get_adaptive_lib
+    _cuda.get_adaptive_lib = lambda: lib
+    try:
+        out = run()
+    finally:
+        _cuda.get_adaptive_lib = committed
+    torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * 16)()
+    _cuda.check(lib, lib.agc_read_clk(ctypes.addressof(buf)), "clock read")
+    rows = max(buf[15], 1)
+    phases = ADAPTIVE_PHASES["dp_group" if W > 1024 else "dp_warp"]
+    cycles = {p: buf[k] / rows for k, p in enumerate(phases)}
+    return {"lane0_rows": buf[15], "cycles_per_row": sum(cycles.values()),
+            "cycles": cycles}, out
+
+
 def seed_bounds(arrays, kw):
     """Least time of seed_block_kernel's function on these inputs, and
     the kernel's latency model: (bound ms, its kind, latency ms, hits).
@@ -1248,8 +1451,8 @@ def seed_bounds(arrays, kw):
     its threads), each its k byte loads (one L1 hit), the directory's
     pair and the range's first code (two L2 reads) and the rest of the
     range's search (an L1 hit), times the waves of blocks the card holds
-    (four an SM at most, fewer where the shared memory is short) on this
-    card's SMs."""
+    (four an SM at most, fewer where the shared memory is short; the bins
+    in the scratch take none) on this card's SMs."""
     import numpy as np
     import torch
     from aligngraph2_tpu_torch.ops.kmer import kmer_codes_batch
@@ -1286,9 +1489,10 @@ def seed_bounds(arrays, kw):
     sms = torch.cuda.get_device_properties(sc.device).multi_processor_count
     C = sharded.seed_grid(NB, 2 * B, NK, sms)
     threads = sharded.SEED_THREADS
+    smem = (0 if sharded.seed_bins_in_scratch(nbins)
+            else sharded.seed_smem_bytes(nbins))
     per_sm = min(2048 // threads, SM_SHARED_BYTES // (
-        sharded.seed_smem_bytes(nbins) + 1024 + 232448
-        - sharded.SEED_SMEM_MAX))
+        smem + 1024 + 232448 - sharded.SEED_SMEM_MAX))
     position = L1_HIT_CYCLES + 2 * L2_HIT_CYCLES + L1_HIT_CYCLES
     lat_ms = (-(-C * 2 * B * NB // (sms * per_sm))
               * -(-(-(-NK // C)) // threads) * position
@@ -1336,12 +1540,12 @@ def seed_gate_shapes(index, k, reads, ctgs, seed):
     rng = np.random.default_rng(seed + 3)
     mesh_index = (torch.from_numpy(index.sorted_codes).to(dev),
                   torch.from_numpy(index.sorted_pos).to(dev))
-    BL = index.block_len
-    for B, NQ, bin_w, blocks in SEED_GATE:
+    for B, NQ, bin_w, blocks, block_len in SEED_GATE:
         sc, sp = mesh_index
+        BL = block_len or index.block_len
         if blocks:
-            genome, sc, sp = synthetic_index(rng, blocks, BL, index.overlap,
-                                             k)
+            genome, sc, sp = synthetic_index(
+                rng, blocks, BL, BL // 4 if block_len else index.overlap, k)
             seqs = []
             for _ in range(B):
                 n = int(rng.integers(NQ // 2, NQ - 200))
@@ -1374,7 +1578,7 @@ def seed_gate_shapes(index, k, reads, ctgs, seed):
         nbins = int(np.ceil((BL + NQ) / bin_w)) + 2
         kw = dict(k=k, NQ=NQ, nbins=nbins, bin_w=bin_w, occ=SEED_OCC,
                   max_occ=SEED_MAX_OCC, top_t=8)
-        yield ((B, NQ, bin_w, blocks),
+        yield ((B, NQ, bin_w, blocks, BL),
                tuple(torch.from_numpy(x).to(dev) for x in (q_fwd, q_rev, lens))
                + (sc, sp, seed_directory(sc, k)), kw)
 
@@ -1390,7 +1594,7 @@ def seed_gate(index, k, reads, ctgs, seed, regs) -> dict:
     from aligngraph2_tpu_torch.parallel import sharded
 
     timing = {}
-    for (B, NQ, bin_w, blocks), arrays, kw in seed_gate_shapes(
+    for (B, NQ, bin_w, blocks, BL), arrays, kw in seed_gate_shapes(
             index, k, reads, ctgs, seed):
         plain_ms, want = warm_ms(
             lambda: sharded._seed_reads_ref(*arrays[:5], **kw), PLAIN_REPS)
@@ -1406,10 +1610,15 @@ def seed_gate(index, k, reads, ctgs, seed, regs) -> dict:
         NB, L = arrays[3].shape
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         emit({"phase": "seed_gate", "B": B, "streams": 2 * B, "NQ": NQ,
-              "bin_w": bin_w, "blocks": NB, "L": L, "nbins": kw["nbins"],
+              "bin_w": bin_w, "blocks": NB, "block_len": BL, "L": L,
+              "nbins": kw["nbins"],
               "cluster": sharded.seed_grid(NB, 2 * B, NQ - kw["k"] + 1,
                                            sms),
-              "smem_bytes": sharded.seed_smem_bytes(kw["nbins"]),
+              "bins_in": ("scratch" if sharded.seed_bins_in_scratch(
+                  kw["nbins"]) else "shared memory"),
+              "launches": -(-NB // sharded.seed_launch_blocks(
+                  NB, 2 * B, kw["nbins"])),
+              "bin_bytes": sharded.seed_smem_bytes(kw["nbins"]),
               "hits": hits, "nonzero_candidates": int((got[0] > 0).sum()),
               "exact": not bad, "mismatch": bad, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
@@ -1712,6 +1921,185 @@ def mesh(args, regs, reads, ctgs, mesh_cpu) -> tuple:
         beta=cfg.beta, bin_w=max(cfg.band_width // 2, 32),
         prune=cfg.prune_ratio), regs)
     return launches, s_launches, seed_t, select_t
+
+
+def widths_mesh_on_cpu(seed):
+    """The first MESH_CPU_READS reads of the pipeline phase's dataset
+    through the mesh path on a 1x1 mesh of the CPU at WIDTHS_MESH, to the
+    similar genome: (.ref text, wall s).  Runs in a child process."""
+    import torch
+    from aligngraph2_tpu_torch.align.aligner import LongReadAligner
+    from aligngraph2_tpu_torch.config import AlignerConfig
+    from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
+    from aligngraph2_tpu_torch.parallel.mesh import make_mesh
+    from tests.synth import make_dataset
+
+    torch.set_num_threads(1)
+    ds = make_dataset(seed=seed, **PIPELINE_DATA)
+    reads = SeqDatabase(ds["reads"])
+    t0 = time.perf_counter()
+    alns = LongReadAligner(
+        SeqDatabase(ds["similar"]), AlignerConfig(**WIDTHS_MESH),
+        mesh=make_mesh(devices=[torch.device("cpu")])).align_reads(
+            reads, ids=range(min(MESH_CPU_READS, len(reads))))
+    return alns.to_ref_text(), time.perf_counter() - t0
+
+
+# the kernels by name, as the profiler reports them (the template
+# arguments, W and the bins' place, kept)
+KERNEL_NAME = re.compile(r"((?:dp|tb)_(?:static|adaptive)_kernel|"
+                         r"seed_block_kernel|select_candidates_kernel)"
+                         r"(<[^>]*>)?")
+
+
+def all_launches() -> dict:
+    from aligngraph2_tpu_torch.ops import banded_static as bs
+    return {"banded_dp_static": bs.banded_dp_static.launches,
+            "traceback_static": bs.traceback_static.launches,
+            **adaptive_launches(), **seed_launches()}
+
+
+def kernel_split(work) -> dict:
+    """``work`` run again under torch.profiler: {kernel with its template
+    arguments: {"launches", "ms_per_launch"}} of the port's kernels, card
+    time.  A few small kernels run first inside the profiler: it missed
+    the first launches of a session without them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        x = torch.ones(1 << 20, device="cuda")
+        for _ in range(8):
+            x.add_(1)
+        torch.cuda.synchronize()
+        work()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = KERNEL_NAME.search(e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            d = out.setdefault(m.group(0).replace(" ", ""),
+                               {"launches": 0, "ms": 0.0})
+            d["launches"] += e.count
+            d["ms"] += e.self_device_time_total / 1e3
+    return {k: {"launches": v["launches"],
+                "ms_per_launch": v["ms"] / max(v["launches"], 1)}
+            for k, v in out.items()}
+
+
+def widths(args, widths_cpu) -> dict:
+    """The port's entry points at the band widths and bin counts past the
+    default ones, on the card's kernels: (a) LongReadAligner at band_width
+    WIDTHS_BAND, read -> contig for the stage dataset's first WIDTHS_READS
+    reads (the static band at W = 2048) and the long read (the adaptive
+    band at 2048), each .ref text equal to the same run through the plain
+    versions on the card; (b) the mesh path on a 1x1 mesh of the card at
+    WIDTHS_MESH, WIDTHS_READS reads of the pipeline phase's dataset to its
+    similar genome (the seeder's bins in the scratch, the extender at W =
+    32), the first MESH_CPU_READS equal to the CPU's (the future
+    ``widths_cpu`` of :func:`widths_mesh_on_cpu`).  Every launch count is
+    zeroed before each run and read after it; no plain version may run on
+    the card there.  A line per run: reads, reads/s, wall, launches, and
+    each kernel's launches and card ms a launch, by name with W (or the
+    seeder's bins' place) from a profiled rerun.  Returns the launches of
+    the three runs summed."""
+    import numpy as np
+    import torch
+    from aligngraph2_tpu_torch.align.aligner import LongReadAligner, _bucket
+    from aligngraph2_tpu_torch.align.records import AlignmentSet
+    from aligngraph2_tpu_torch.config import AlignerConfig
+    from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
+    from aligngraph2_tpu_torch.parallel.mesh import make_mesh
+    from tests.synth import make_dataset
+
+    total = dict.fromkeys(all_launches(), 0)
+
+    def run(name, work, n_reads, need, extra):
+        zero_launches()
+        with RefCalls() as rc:
+            t0 = time.perf_counter()
+            alns = work()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = all_launches()
+        for k, v in launches.items():
+            total[k] += v
+        line = {"phase": "widths", "run": name, "reads": n_reads,
+                "wall_s": wall, "reads_per_s": n_reads / wall,
+                "alignments": len(alns),
+                "aligned_reads": len({a.query_name for a in alns}),
+                "launches": launches, "plain_calls_on_card": rc.cuda_calls,
+                "kernels": kernel_split(work), **extra(alns)}
+        line["equal"] = bool(line.pop("equal_", True))
+        emit(line)
+        missing = [k for k in need if not launches[k]]
+        if missing or rc.cuda_calls or not line["equal"] or not len(alns):
+            raise SystemExit(f"widths {name}: kernels not launched "
+                             f"{missing}, {rc.cuda_calls} plain calls on "
+                             f"the card, equal {line['equal']}, "
+                             f"{len(alns)} alignments")
+        return alns
+
+    # (a) one device, band_width WIDTHS_BAND
+    ds = stage_dataset(args.seed, args.genome_mb)
+    reads, ctgs = SeqDatabase(ds["reads"]), SeqDatabase(ds["contigs"])
+    cfg = AlignerConfig(band_width=WIDTHS_BAND)
+    ids = range(min(WIDTHS_READS, len(reads)))
+
+    def plain_equal(target, rdb, rids):
+        def extra(alns):
+            t0 = time.perf_counter()
+            plain = LongReadAligner(target, cfg, plain=True).align_reads(
+                rdb, ids=rids)
+            torch.cuda.synchronize()
+            return {"plain_s": time.perf_counter() - t0,
+                    "equal_": alns.to_ref_text() == plain.to_ref_text()}
+        return extra
+
+    alns = run("static", lambda: LongReadAligner(ctgs, cfg).align_reads(
+        reads, ids=ids), len(ids), ("banded_dp_static", "traceback_static"),
+        plain_equal(ctgs, reads, ids))
+    check_records(alns, reads, ctgs)
+    lr_reads, lr_target = long_read_dbs(args.seed)
+    alns = run("long_read", lambda: LongReadAligner(
+        lr_target, cfg).align_reads(lr_reads), 1,
+        ("banded_align", "traceback"),
+        plain_equal(lr_target, lr_reads, None))
+    check_records(alns, lr_reads, lr_target)
+
+    # (b) the mesh path, band_width 32 on 1 Mb blocks
+    t0 = time.perf_counter()
+    ds = make_dataset(seed=args.seed, **PIPELINE_DATA)
+    reads, sim = SeqDatabase(ds["reads"]), SeqDatabase(ds["similar"])
+    setup_s = time.perf_counter() - t0
+    cfg_m = AlignerConfig(**WIDTHS_MESH)
+    al = LongReadAligner(sim, cfg_m, mesh=make_mesh(1))
+    al._ensure_sharded_index()
+    ids = range(min(WIDTHS_READS, len(reads)))
+    few = {reads.names[r] for r in range(min(MESH_CPU_READS, len(reads)))}
+    idx = al._block_index
+    nq = sorted({_bucket(reads.size(r)) for r in ids})
+
+    def mesh_extra(alns):
+        from aligngraph2_tpu_torch.parallel import sharded
+        card = AlignmentSet([a for a in alns if a.query_name in few]
+                            ).to_ref_text()
+        cpu_text, cpu_s = widths_cpu.result()
+        bins = {n: int(np.ceil((idx.block_len + n) / max(
+            cfg_m.band_width // 2, 32))) + 2 for n in nq}
+        return {"setup_s": setup_s, "blocks": int((idx.block_lens > 0).sum()),
+                "block_len": idx.block_len, "nbins_by_nq": bins,
+                "bins_in_scratch": {n: sharded.seed_bins_in_scratch(b)
+                                    for n, b in bins.items()},
+                "cpu_reads": len(few), "cpu_s": cpu_s,
+                "equal_": bool(card) and card == cpu_text}
+
+    alns = run("mesh", lambda: al.align_reads(reads, ids=ids), len(ids),
+               ("banded_align", "traceback", "seed_block",
+                "select_candidates"), mesh_extra)
+    check_records(alns, reads, sim)
+    return total
 
 
 def probe() -> dict:
@@ -2213,14 +2601,15 @@ def main() -> int:
     auto = probe()
     timing = gate(args, built["regs"])
     a_timing = adaptive_gate(args, built["regs"])
-    # the CPU halves of long_read and mesh run side by side
+    # the CPU halves of long_read, mesh and widths run side by side
     with concurrent.futures.ProcessPoolExecutor(
-            2, mp_context=multiprocessing.get_context("spawn")) as pool:
-        on_cpu, mesh_cpu, reads, ctgs = slice_run(args, pool)
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        on_cpu, mesh_cpu, widths_cpu, reads, ctgs = slice_run(args, pool)
         a_launches = {"long_read": long_read(args, on_cpu)}
         a_launches["mesh"], s_launches, seed_t, select_t = mesh(
             args, built["regs"], reads, ctgs, mesh_cpu)
-    del reads, ctgs
+        del reads, ctgs
+        w_launches = widths(args, widths_cpu)
     launches, calls = pipeline(args)
     device_paths(calls)
     merge_sweep(calls)
@@ -2228,16 +2617,22 @@ def main() -> int:
     cli_run(args, auto)
     emit({"phase": "total", "script_s": time.perf_counter() - t_script})
     kernels = []
+    # launches on each path that runs the kernel: the pipeline's aligner
+    # stages and the widths phase (the static band); the long read, the
+    # mesh and the widths phase (the adaptive band); the mesh and the
+    # widths phase (the seeder)
     for name, key, replaces in (
             ("banded_dp_static", "dp",
              "aligngraph2_tpu/ops/banded_pallas.py:54"),
             ("traceback_static", "tb",
              "aligngraph2_tpu/ops/banded_pallas.py:375")):
         ms, plain_ms, bound, by = timing[key]
+        by_phase = {"pipeline": launches[name], "widths": w_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "aligngraph2_tpu_torch/csrc/banded_static.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             "max_abs_err": float(timing["err"][key]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None})
@@ -2248,6 +2643,7 @@ def main() -> int:
             ("traceback", "tb", "aligngraph2_tpu/ops/banded_dp.py:244")):
         ms, plain_ms, bound, by = a_timing[key]
         by_phase = {ph: n[name] for ph, n in a_launches.items()}
+        by_phase["widths"] = w_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "aligngraph2_tpu_torch/csrc/banded_adaptive.cu",
@@ -2263,10 +2659,12 @@ def main() -> int:
              "aligngraph2_tpu/parallel/sharded.py:126"),
             ("select_candidates", select_t,
              "aligngraph2_tpu/parallel/sharded.py:171")):
+        by_phase = {"mesh": s_launches[name], "widths": w_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "aligngraph2_tpu_torch/csrc/seed_mesh.cu",
-            "replaces": replaces, "launches": s_launches[name],
+            "replaces": replaces, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             "max_abs_err": float(t["err"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})

@@ -1,9 +1,11 @@
 """The adaptive band's plain versions (aligngraph2_tpu_torch/ops/banded_dp.py)
 against the JAX package's banded_align / traceback on the lanes the card
-gate uses (chip_smoke.adaptive_lanes) at small size, and the pieces of the
-CUDA kernels' contract that run on the CPU: the gap chain's serial form,
-the DP's packed row key and staged target span, the traceback's DIAG-run
-step (emulated in numpy), the frozen-centre fill, the width check and the
+gate uses (chip_smoke.adaptive_lanes) at small size, at every band width
+the kernels take, and the pieces of the CUDA kernels' contract that run on
+the CPU: the gap chain's serial form, one warp's blocked chain and a
+group of warps' chain and row maximum (emulated in numpy), the DP's packed
+row key and staged target span, the traceback's DIAG-run step, the
+frozen-centre fill, the width check, the clocked copy's edits and the
 aligner's plain route.  Every comparison is exact."""
 
 import os
@@ -20,7 +22,6 @@ from aligngraph2_tpu_torch.align import aligner as taligner
 from aligngraph2_tpu_torch.config import AlignerConfig
 from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
 from aligngraph2_tpu_torch.ops import _cuda
-from aligngraph2_tpu_torch.ops import adaptive_variants as av
 from aligngraph2_tpu_torch.ops import banded_dp as tdp
 from aligngraph2_tpu_torch.ops.seedextend import Candidate
 from tests.synth import mutate, random_genome
@@ -63,7 +64,179 @@ def test_plain_equals_jax_on_gate_lanes(W, x_drop):
     assert cut > 0    # NQ/3 cut some walks short
 
 
-@pytest.mark.parametrize("W", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("W,x_drop", [(16, 0), (16, 250), (32, 250),
+                                      (2048, 0), (2048, 250), (4096, 0),
+                                      (4096, 250)])
+def test_plain_equals_jax_at_every_kernel_width(W, x_drop):
+    """The widths the kernels gained (one column a thread at 16 and 32, a
+    group of warps at 2048 and 4096), both forms, on the gate's lanes at
+    NQ = 128: every output of the DP and the traceback at the full
+    max_steps and at one that cuts walks."""
+    lanes = _lanes(W, W + x_drop + 1)
+    q, qlen, t, tlen, c0 = lanes
+    want = jdp.banded_align(*lanes, W=W, x_drop=x_drop)
+    got = tdp.banded_align_ref(*lanes, W=W, x_drop=x_drop)
+    for name in want._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert int(got.score.max()) > 100
+    cut = 0
+    for ms in (NQ + t.shape[1], NQ // 3):
+        mj = [np.asarray(x) for x in jdp.traceback(
+            want.dirs, want.centers, want.best_i, want.best_j, max_steps=ms)]
+        mt = [x.numpy() for x in tdp.traceback_ref(
+            got.dirs, got.centers, got.best_i, got.best_j, max_steps=ms)]
+        for a, b, name in zip(mt, mj, ("moves", "n", "si", "sj")):
+            np.testing.assert_array_equal(a, b, err_msg=f"{name}@{ms}")
+        cut = int((mj[1] == ms).sum())
+    assert cut > 0
+
+
+def _group_row(M, live, gap, W, packed):
+    """dp_group's row (dp_adaptive_kernel at W = 2048 and 4096), emulated
+    on G = W/1024 warps of 32 threads of 32 columns, from the row's M (R,
+    W) and its live cells (R, W; an interval a row): each warp's own chain
+    (serial prefix, shuffle scan, carry, fix-up), its total, its best key
+    (or maximum and first column) over its live cells and its first two
+    H; then, as every warp does after the barrier, the carries C_g, each
+    warp's best with the carry term at its first live column (the last
+    where gap > 0), the row's best, the final cells and the neighbours
+    across the warp edges.  Returns (final H unmasked, final H with NEG
+    cells, row max, its column, lft (R, G) of each warp's thread 0, rt0
+    and rt1 (R, G) of each warp's thread 31)."""
+    G, C = W // 1024, 32
+    kb = tdp.key_bits(W)
+    kcol = (1 << kb) - 1
+    R = len(M)
+    lane = np.arange(32)
+    H = M.reshape(R, G, 32, C).copy()
+    for k in range(1, C):
+        H[..., k] = np.maximum(H[..., k - 1] + gap, H[..., k])
+    x = H[..., C - 1].copy()
+    for e in (1, 2, 4, 8, 16):
+        y = np.roll(x, e, axis=2)
+        x = np.where(lane >= e, np.maximum(y + gap * C * e, x), x)
+    total = x[..., 31]
+    carry = np.where(lane >= 1, np.roll(x, 1, axis=2), tdp.NEG)
+    H = np.maximum(carry[..., None] + gap * (np.arange(C) + 1), H)
+    Hl = H.reshape(R, G, 1024)
+    lv = live.reshape(R, G, 1024)
+    cols = np.arange(W).reshape(G, 1024)
+    keys = np.where(lv, (Hl << kb) + kcol - cols, -1)
+    vals = np.where(lv, Hl, tdp.NEG)
+    out = np.empty((R, W), np.int64)
+    rmax = np.empty(R, np.int64)
+    rarg = np.empty(R, np.int64)
+    lft = np.full((R, G), tdp.NEG, np.int64)
+    rt0 = np.full((R, G), tdp.NEG, np.int64)
+    rt1 = np.full((R, G), tdp.NEG, np.int64)
+    for r in range(R):
+        on = np.flatnonzero(live[r])
+        jlo, jhi = (on[0], on[-1]) if len(on) else (W, -1)
+        cin = tdp.NEG
+        cins, kbest, mbest, abest = [], -1, tdp.NEG, 0
+        for g in range(G):
+            wa = int(keys[r, g].max()) if packed else int(vals[r, g].max())
+            wb = int(np.argmax(vals[r, g])) + 1024 * g
+            a, e = max(jlo, 1024 * g), min(jhi, 1024 * g + 1023)
+            if g > 0 and a <= e:
+                cs = a if gap <= 0 else e
+                cv = cin + gap * (cs - 1024 * g + 1)
+                if packed:
+                    if cv >= 0:
+                        wa = max(wa, (cv << kb) + kcol - cs)
+                elif cv > wa or (cv == wa and cs < wb):
+                    wa, wb = cv, cs
+            if packed:
+                kbest = max(kbest, wa)
+            elif wa > mbest:
+                mbest, abest = wa, wb
+            cins.append(cin)
+            if g > 0:
+                rt0[r, g - 1] = max(Hl[r, g, 0], cin + gap)
+                rt1[r, g - 1] = max(Hl[r, g, 1], cin + 2 * gap)
+            cin = max(int(total[r, g]), cin + gap * 1024)
+        if packed:
+            rmax[r] = kbest >> kb if kbest >= 0 else tdp.NEG
+            rarg[r] = kcol - (kbest & kcol)
+        else:
+            rmax[r], rarg[r] = mbest, abest
+        for g in range(G):
+            out[r, 1024 * g:1024 * (g + 1)] = np.maximum(
+                Hl[r, g], cins[g] + gap * (np.arange(1024) + 1))
+            if g > 0:
+                lft[r, g] = cins[g]
+    masked = np.where(live, out, tdp.NEG)
+    for g in range(G):   # the edges' cells are live or NEG
+        if g > 0:
+            lft[:, g] = np.where(live[:, 1024 * g - 1], lft[:, g], tdp.NEG)
+        if g < G - 1:
+            rt0[:, g] = np.where(live[:, 1024 * g + 1024], rt0[:, g],
+                                 tdp.NEG)
+            rt1[:, g] = np.where(live[:, 1024 * g + 1025], rt1[:, g],
+                                 tdp.NEG)
+    return out, masked, rmax, rarg, lft, rt0, rt1
+
+
+@pytest.mark.parametrize("W", [2048, 4096])
+def test_group_gap_chain_and_row_max_equal_kogge_stone(W):
+    """dp_group's chain and row reduction across its warps, emulated
+    (_group_row): the final cells equal maxplus_scan over the shifts 1 ..
+    W/2, the row maximum and its first column equal the plain rule over
+    the live cells (both key forms), and each warp's edge neighbours equal
+    the final row's cells there.  Rows with a peak just before a warp
+    edge (the carry wins the next warp's first live column), ties across
+    warps, live intervals that start, end or vanish inside a warp, rows
+    of zeros, and gap 0 and 2 (the carry term flat or rising)."""
+    G = W // 1024
+    rng = np.random.default_rng(W)
+    R = 48
+    M = rng.integers(0, 30, (R, W)).astype(np.int64)
+    M[rng.random(M.shape) < 0.6] = 0
+    for r in range(0, R, 4):   # a peak before a warp edge
+        g = int(rng.integers(1, G))
+        M[r, 1024 * g - int(rng.integers(1, 40))] = 900
+    M[1] = 0
+    M[5, [100, 1024 + 100]] = 77   # a tie across warps
+    live = np.zeros((R, W), bool)
+    for r in range(R):
+        lo = int(rng.integers(-W // 2, W))
+        hi = int(rng.integers(lo, lo + W + W // 2))
+        live[r, max(lo, 0):max(min(hi, W), 0)] = True
+    live[2] = True
+    live[3] = False
+    live[4, 1024 + 7:] = True
+    for gap in (-3, -1, -7, 0, 2):
+        want = tdp.maxplus_scan(torch.from_numpy(M), gap,
+                                tdp.ks_shifts(W)).numpy()
+        wmask = np.where(live, want, tdp.NEG)
+        wmax = wmask.max(axis=1)
+        for packed in (True, False):
+            out, masked, rmax, rarg, lft, rt0, rt1 = _group_row(
+                M, live, gap, W, packed)
+            np.testing.assert_array_equal(out, want, err_msg=str(gap))
+            np.testing.assert_array_equal(masked, wmask)
+            np.testing.assert_array_equal(rmax, wmax)
+            on = wmax >= 0
+            np.testing.assert_array_equal(rarg[on],
+                                          wmask.argmax(axis=1)[on])
+            for g in range(G):
+                if g > 0:
+                    np.testing.assert_array_equal(lft[:, g],
+                                                  wmask[:, 1024 * g - 1])
+                if g < G - 1:
+                    np.testing.assert_array_equal(rt0[:, g],
+                                                  wmask[:, 1024 * g + 1024])
+                    np.testing.assert_array_equal(rt1[:, g],
+                                                  wmask[:, 1024 * g + 1025])
+    # the carry into a later warp decided a row's maximum
+    out, masked, rmax, rarg, *_ = _group_row(M, live, -3, W, True)
+    assert any(rarg[r] % 1024 < 40 and rarg[r] >= 1024 and M[r, rarg[r]] < 900
+               for r in range(0, R, 4) if rmax[r] > 0)
+
+
+@pytest.mark.parametrize("W", [16, 32, 64, 128, 256, 512, 1024])
 def test_serial_prefix_equals_kogge_stone(W):
     """The kernels' gap chain rests on this: the serial max-plus prefix
     H[j] = max(M[j], H[j-1] + gap) over a DP row (M >= 0 after the clamp)
@@ -79,18 +252,22 @@ def test_serial_prefix_equals_kogge_stone(W):
         np.testing.assert_array_equal(H, want.numpy(), err_msg=str(gap))
 
 
-@pytest.mark.parametrize("W", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("W", [16, 32, 64, 128, 256, 512, 1024])
 def test_blocked_gap_chain_equals_kogge_stone(W):
     """dp_adaptive_kernel's gap chain, emulated on 32 threads of C = W/32
-    columns: the serial prefix over each thread's columns, an inclusive
-    shuffle scan of the thread totals over shifts 1 .. 16 (a lane with
-    no source lane keeps its value), the carry from the left neighbour
-    (NEG into lane 0), and the fix-up max(carry + gap*(k+1), prefix[k]),
-    equals maxplus_scan over the shifts 1 .. W/2, exactly."""
-    C = W // 32
+    columns (one at W = 32 and 16; at 16 threads 16 .. 31 mirror threads
+    0 .. 15 and are read by none): the serial prefix over each thread's
+    columns, an inclusive shuffle scan of the thread totals over shifts
+    1 .. 16 (a lane with no source lane keeps its value), the carry from
+    the left neighbour (NEG into lane 0), and the fix-up max(carry +
+    gap*(k+1), prefix[k]), equals maxplus_scan over the shifts 1 .. W/2,
+    exactly."""
+    C = max(W // 32, 1)
+    NL = W // C
     rng = np.random.default_rng(W + 1)
-    M = rng.integers(0, 400, (16, 32, C)).astype(np.int64)
+    M = rng.integers(0, 400, (16, NL, C)).astype(np.int64)
     M[rng.random(M.shape) < 0.4] = 0
+    M = np.concatenate([M] * (32 // NL), axis=1)   # the mirrors
     lane = np.arange(32)
     for gap in (-3, -1, -7):
         H = M.copy()
@@ -102,10 +279,10 @@ def test_blocked_gap_chain_equals_kogge_stone(W):
             x = np.where(lane >= e, np.maximum(y + gap * C * e, x), x)
         carry = np.where(lane >= 1, np.roll(x, 1, axis=1), tdp.NEG)
         H = np.maximum(carry[:, :, None] + gap * (np.arange(C) + 1), H)
-        want = tdp.maxplus_scan(torch.from_numpy(M.reshape(16, W)), gap,
-                                tdp.ks_shifts(W))
-        np.testing.assert_array_equal(H.reshape(16, W), want.numpy(),
-                                      err_msg=str(gap))
+        want = tdp.maxplus_scan(torch.from_numpy(M[:, :NL].reshape(16, W)),
+                                gap, tdp.ks_shifts(W))
+        np.testing.assert_array_equal(H[:, :NL].reshape(16, W),
+                                      want.numpy(), err_msg=str(gap))
 
 
 QLENS = np.array([0, 1, 17, 40, 63, 64, 100, NQ], np.int32)
@@ -152,13 +329,14 @@ def test_fill_centers_restores_frozen_rows(x_drop):
 
 
 def test_kernel_width_check():
-    """The CUDA path takes W in KERNEL_WIDTHS and raises for any other
-    band, as the static band's _need_width does."""
-    for W in tdp.KERNEL_WIDTHS:
-        tdp.need_width(W)
-    assert tdp.KERNEL_WIDTHS == (64, 128, 256, 512, 1024)
-    for W in (16, 32, 48, 96, 2048):
-        with pytest.raises(ValueError):
+    """The CUDA path takes every power of two W from 16 to 4096 (the
+    domain PipelineConfig.validate holds band_width to on cuda) and raises
+    for any other band, as the static band's _need_width does."""
+    assert tdp.KERNEL_WIDTHS == tuple(1 << e for e in range(4, 13))
+    for e in range(4, 13):
+        tdp.need_width(1 << e)
+    for W in (8, 48, 96, 8192):
+        with pytest.raises(ValueError, match="power of two from 16 to 4096"):
             tdp.need_width(W)
 
 
@@ -211,19 +389,25 @@ def _kernel_constant(pattern):
 
 def _row_keys(H, W):
     """dp_adaptive_kernel's row reduction on rows H (R, W): each cell's key
-    h << KEY_BITS | (2^KEY_BITS - 1 - j), -1 for a NEG cell; a thread's C =
-    W/32 columns as a max tree, then the max over the 32 threads.  Returns
-    (row max, first column) as the kernel decodes them."""
-    C = W // 32
-    lo = (1 << tdp.KEY_BITS) - 1
+    h << key_bits(W) | (2^key_bits(W) - 1 - j), -1 for a NEG cell; a
+    thread's C columns as a max tree (C = W/32, one at W <= 32, where
+    threads past W hold only -1), the max over the 32 threads of a warp,
+    and past W = 1024 the max over the W/1024 warps.  Returns (row max,
+    first column) as the kernel decodes them."""
+    kb = tdp.key_bits(W)
+    lo = (1 << kb) - 1
     j = np.arange(W, dtype=np.int64)
-    keys = np.where(H >= 0, (H.astype(np.int64) << tdp.KEY_BITS) + lo - j, -1)
+    keys = np.where(H >= 0, (H.astype(np.int64) << kb) + lo - j, -1)
     assert keys.max() <= np.iinfo(np.int32).max
-    t = keys.reshape(len(H), 32, C)
+    C = min(max(W // 32, 1), 32)
+    t = keys.reshape(len(H), -1, C)       # (rows, threads, C)
+    if t.shape[1] < 32:
+        t = np.concatenate([t, np.full((len(H), 32 - t.shape[1], C), -1)],
+                           axis=1)
     while t.shape[2] > 1:   # the tree: pairs of neighbours
         t = np.maximum(t[:, :, 0::2], t[:, :, 1::2])
-    key = t[:, :, 0].max(axis=1)
-    rmax = np.where(key >= 0, key >> tdp.KEY_BITS, tdp.NEG)
+    key = t[:, :, 0].reshape(len(H), -1, 32).max(axis=2).max(axis=1)
+    rmax = np.where(key >= 0, key >> kb, tdp.NEG)
     return rmax, lo - (key & lo)
 
 
@@ -236,20 +420,21 @@ def test_packed_row_key_equals_two_reductions(W):
     x_drop rule read the same."""
     rng = np.random.default_rng(W)
     R = 64
+    top = 1 << (31 - tdp.key_bits(W))                 # the bound
     H = rng.integers(0, 6, (R, W)).astype(np.int32)   # many ties
     H[rng.random(H.shape) < 0.3] = tdp.NEG
     H[0] = tdp.NEG                                    # a row of NEG
     H[1] = 0
     H[2, : W // 2] = tdp.NEG
-    H[3] = rng.integers(0, 1 << 21, W)                # up to the bound
-    H[4, [5, W - 1]] = (1 << 21) - 1                  # the largest, tied
+    H[3] = rng.integers(0, top, W)                    # up to the bound
+    H[4, [5, W - 1]] = top - 1                        # the largest, tied
     H[5, -1] = 7                                      # last column only
     rmax, rarg = _row_keys(H, W)
     np.testing.assert_array_equal(rmax, H.max(axis=1))
     live = rmax >= 0
     np.testing.assert_array_equal(rarg[live], H.argmax(axis=1)[live])
     assert rmax[0] == tdp.NEG and rarg[4] == 5 and rarg[5] == W - 1
-    for best in (0, 3, 5, 1 << 20):
+    for best in (0, 3, 5, top // 2):
         for x_drop in (1, 2, 250):
             dies = ~((best == 0) | (rmax >= best - x_drop))
             want = ~((best == 0) | (H.max(axis=1) >= best - x_drop))
@@ -260,14 +445,38 @@ def test_packed_key_bound_picks_the_form():
     """The wrapper reduces with packed keys exactly while every key of
     max(match, 0) * NQ fits int32, else with two reductions; the
     aligner's widest bucket (NQ = 131072) at match 2 is packed."""
-    top = (1 << (31 - tdp.KEY_BITS)) - 1           # the largest score
-    assert top * (1 << tdp.KEY_BITS) + (1 << tdp.KEY_BITS) - 1 \
-        == np.iinfo(np.int32).max
-    assert tdp.packed_key_ok(2, 131072)
-    assert tdp.packed_key_ok(1, top) and not tdp.packed_key_ok(1, top + 1)
-    assert tdp.packed_key_ok(2, top // 2) and not tdp.packed_key_ok(2, 1 << 20)
-    assert not tdp.packed_key_ok(16, 131072)
-    assert tdp.packed_key_ok(0, 10 ** 9) and tdp.packed_key_ok(-1, 10 ** 9)
+    W = 256
+    kb = tdp.key_bits(W)
+    top = (1 << (31 - kb)) - 1                     # the largest score
+    assert top * (1 << kb) + (1 << kb) - 1 == np.iinfo(np.int32).max
+    assert tdp.packed_key_ok(2, 131072, W)
+    assert tdp.packed_key_ok(1, top, W) and not tdp.packed_key_ok(1, top + 1, W)
+    assert tdp.packed_key_ok(2, top // 2, W) \
+        and not tdp.packed_key_ok(2, 1 << 20, W)
+    assert not tdp.packed_key_ok(16, 131072, W)
+    assert tdp.packed_key_ok(0, 10 ** 9, W) and tdp.packed_key_ok(-1, 10 ** 9, W)
+
+
+def test_packed_key_bound_follows_the_width():
+    """The row key takes 10 column bits up to W = 1024 and log2 W past it
+    (11 at 2048, 12 at 4096), in the wrapper as in the kernel's key_bits,
+    so the packed form's edge falls to match * NQ < 2^(31 - log2 W) there;
+    the aligner's widest bucket at match 2 stays packed at every width."""
+    with open(KERNEL_SRC) as f:
+        src = f.read()
+    assert "return W <= 1024 ? 10 : W == 2048 ? 11 : 12;" in src
+    for W in tdp.KERNEL_WIDTHS:
+        kb = tdp.key_bits(W)
+        assert kb == max(10, W.bit_length() - 1)
+        top = (1 << (31 - kb)) - 1
+        assert tdp.packed_key_ok(1, top, W)
+        assert not tdp.packed_key_ok(1, top + 1, W)
+        assert tdp.packed_key_ok(2, 131072, W)
+    assert tdp.packed_key_ok(2, (1 << 19) - 1, 2048)
+    assert not tdp.packed_key_ok(2, 1 << 19, 2048)
+    assert tdp.packed_key_ok(2, (1 << 18) - 1, 4096)
+    assert not tdp.packed_key_ok(2, 1 << 18, 4096)
+    assert tdp.packed_key_ok(2, 1 << 19, 1024)
 
 
 def test_staged_span_covers_every_drift():
@@ -286,8 +495,10 @@ def test_staged_span_covers_every_drift():
             np.r_[np.full(stage, 2), np.zeros(stage, int),
                   np.full(n - 2 * stage, 2)],
             *(rng.integers(0, 3, n) for _ in range(8))]
-    for W in tdp.KERNEL_WIDTHS:
-        C = W // 32
+    # past W = 1024 each warp of the group stages its 1024 columns' span
+    assert _kernel_constant(r"constexpr int SPAN = 1024 \+ (\d+);") == extra
+    for W in (w for w in tdp.KERNEL_WIDTHS if w <= 1024):
+        C = max(W // 32, 1)
         NA = (C + 3) // 4
         span = W + extra
         assert span % 16 == 0
@@ -443,16 +654,26 @@ def test_run_step_walk_equals_traceback(W):
 
 
 def test_variant_edits_apply_to_the_kernel_source():
-    """ops/adaptive_variants.py builds its variants and its clock64()
-    build by text edits of csrc/banded_adaptive.cu: each edit's text occurs
-    exactly once in the committed source, so an edit of the kernel that
-    moves one fails here rather than on the card."""
+    """chip_smoke.py's adaptive gate builds a clock64() copy of
+    csrc/banded_adaptive.cu by text edits (ADAPTIVE_CLOCK_EDITS), each
+    inside the function of its form of a lane: each edit's text occurs
+    exactly once there, so an edit of the kernel that moves one fails here
+    rather than on the card; the copy has every phase's mark and the C
+    function that reads them, and names each form's phases."""
     with open(_cuda.ADAPTIVE_SRC) as f:
         src = f.read()
-    for name, (_, edits) in av.VARIANTS.items():
-        assert av.edit(src, edits) != src, name
-    clocked = av.clocked(src, "new")
-    assert len(re.findall(r"CLK\(\d\);", clocked)) == 9
+    clocked = chip_smoke.clocked_adaptive_source(src)
+    marks = re.findall(r"CLK\((\d)\);", clocked)
+    assert len(marks) == sum(len(v) for v in
+                             chip_smoke.ADAPTIVE_PHASES.values())
+    for form, edits in chip_smoke.ADAPTIVE_CLOCK_EDITS.items():
+        first, after = chip_smoke.ADAPTIVE_CLOCK_REGIONS[form]
+        part = clocked[clocked.index(first):clocked.index(after)]
+        n = len(chip_smoke.ADAPTIVE_PHASES[form])
+        assert sorted(set(re.findall(r"CLK\((\d)\);", part))) == \
+            [str(k) for k in range(n)], form
+        assert part.count("g_clk[15] = i;") == 1, form
     assert "agc_read_clk" in clocked
     with pytest.raises(ValueError):
-        av.edit(src, [("no such text", "")])
+        chip_smoke.clocked_adaptive_source(src.replace(
+            "    int x = H[C - 1];\n", "    int x = H[C - 1]; \n"))

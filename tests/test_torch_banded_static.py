@@ -317,3 +317,65 @@ def test_traceback_edges_equal_traceback_t(name):
         assert (got[0][0, :30] == UP).all()   # j runs to W-1 + 30
     if name == "max_steps_cut":
         assert (got[1].numpy() == max_steps).all()
+
+
+@pytest.mark.parametrize("Wd, x_drop", [(2048, 0), (4096, 250)])
+def test_wide_band_equals_pallas(Wd, x_drop):
+    """The widths past one warp's registers (the kernel's multi-warp
+    lane): the plain DP and traceback against the Pallas kernel in
+    interpret mode and traceback_t, at the shapes of
+    tests/test_banded_pallas.py (B = 8, K = 32, TB = 8, NQ = 64), one
+    x_drop each (a Pallas compile takes minutes here): score and best
+    cell exact, every direction at x_drop 0, the rows up to best_i at
+    250, and the moves, count and start of every walk."""
+    nq, B = 64, 8
+    rng = np.random.default_rng(Wd)
+    q = np.full((B, nq), jp.Q_SENTINEL, np.uint8)
+    qlen = np.zeros(B, np.int32)
+    ts_, diags = [], []
+    for b in range(B):
+        g = encode_seq(random_genome(rng, Wd + 400))
+        start = int(rng.integers(0, Wd + 300 - nq))
+        read = encode_seq(mutate(rng, decode_seq(g[start:start + nq]),
+                                 sub=0.05, ins=0.03, dele=0.03))[:nq]
+        ln = int(rng.integers(nq // 2, len(read) + 1))
+        q[b, :ln] = read[:ln]
+        qlen[b] = ln
+        ts_.append(g)
+        diags.append(start + int(rng.integers(-Wd // 4, Wd // 4)))
+    t, _ = jp.standard_frame_windows(ts_, diags, nq, Wd)
+    want = jp.banded_align_pallas(q, t, qlen, W=Wd, K=K, TB=TB,
+                                  x_drop=x_drop, interpret=True)
+    got = ts.banded_dp_static(torch.from_numpy(q), torch.from_numpy(t),
+                              torch.from_numpy(qlen), W=Wd, K=K,
+                              x_drop=x_drop)
+    for name in ("score", "best_i", "best_j"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert int(got.score.min()) > 40
+    dj = _jax_dirs(want)
+    dt = ts.unpack_words(got.words).numpy()
+    for b in range(B):
+        rows = nq if x_drop == 0 else int(got.best_i[b])
+        np.testing.assert_array_equal(dt[b, :rows], dj[b, :rows])
+    ms = 2 * nq + Wd
+    tw = jp.traceback_t(want.words, want.best_i, want.best_j,
+                        max_steps=ms, W=Wd)
+    tt = ts.traceback_static(got.words, got.best_i, got.best_j,
+                             max_steps=ms)
+    for a, b_, name in zip(tt, tw, ("moves", "n", "si", "sj")):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b_),
+                                      err_msg=name)
+
+
+def test_kernel_width_check():
+    """The CUDA path takes W = max(band_width, 256) for every power-of-two
+    band_width from 16 to 4096, so W a power of two from 256 to 4096, and
+    raises for any other width."""
+    assert ts.KERNEL_WIDTHS == (256, 512, 1024, 2048, 4096)
+    for e in range(4, 13):
+        ts._need_width(max(1 << e, 256))
+    for Wd in (8, 48, 128, 8192, 3000):
+        with pytest.raises(ValueError, match="power of two from 256 to 4096"):
+            ts._need_width(Wd)

@@ -119,7 +119,7 @@ def seed_dir(sc, dsh):
 
 
 def seed_core(q_codes, q_valid, sorted_codes, sorted_pos, *, NQ, nbins,
-              bin_w, occ, max_occ, top_t, dsh):
+              bin_w, occ, max_occ, top_t, dsh, bins=None):
     """seed_block_kernel's algorithm after the k-mer codes, in numpy: per
     (stream, block) the directory's range of the code (h = code >> dsh),
     a lower bound in it, a stop where the code is not at lo, the run by
@@ -127,7 +127,10 @@ def seed_core(q_codes, q_valid, sorted_codes, sorted_pos, *, NQ, nbins,
     bins (the bin by bin_w's reciprocal) with a list of touched bins,
     then top_t rounds of the largest packed key below the last winner
     over the touched bins and the untouched bins just below them.
-    Returns cnt, diag (S, NB, T) int32."""
+    ``bins(s, blk)``, when given, returns the pair's (3, nbins) rows of
+    hist, dsum and touched bins as the kernel's scratch holds them, not
+    zeroed; else the bins are the model's own.  Returns cnt, diag (S, NB,
+    T) int32."""
     S, NK = q_codes.shape
     NB, L = sorted_codes.shape
     D = 1 << tsh.SEED_DIR_BITS
@@ -139,8 +142,12 @@ def seed_core(q_codes, q_valid, sorted_codes, sorted_pos, *, NQ, nbins,
         sp = sorted_pos[blk]
         d = seed_dir(sc, dsh)
         for s in range(S):
-            hist = [0] * nbins
-            dsum = [0] * nbins
+            if bins is None:
+                hist, dsum, slots = [0] * nbins, [0] * nbins, [0] * nbins
+            else:
+                hist, dsum, slots = bins(s, blk)
+                hist[:] = 0   # the leader zeroes hist and dsum, not slots
+                dsum[:] = 0
             touched = []
             for p in range(NK):
                 if not q_valid[s, p]:
@@ -158,36 +165,36 @@ def seed_core(q_codes, q_valid, sorted_codes, sorted_pos, *, NQ, nbins,
                     dg = i32(int(sp[lo + o]) - p + NQ)
                     x = 0 if dg < 0 else min(udiv(dg, div), nbins - 1)
                     if hist[x] == 0:
+                        slots[len(touched)] = x
                         touched.append(x)
                     hist[x] += 1
-                    dsum[x] = i32(dsum[x] + dg)
+                    dsum[x] = i32(int(dsum[x]) + dg)
             last = None
             for t in range(top_t):
                 keys = []
-                for x in touched:
-                    nxt = hist[x + 1] if x + 1 < nbins else 0
-                    keys.append((hist[x] + nxt) * nbins + (nbins - 1 - x))
+                for x in map(int, slots[:len(touched)]):
+                    nxt = int(hist[x + 1]) if x + 1 < nbins else 0
+                    keys.append((int(hist[x]) + nxt) * nbins
+                                + (nbins - 1 - x))
                     if x > 0 and hist[x - 1] == 0:
-                        keys.append(hist[x] * nbins + (nbins - x))
+                        keys.append(int(hist[x]) * nbins + (nbins - x))
                 keys = [k for k in keys if last is None or k < last]
                 if not keys:
                     break   # the rest stay (0, 0)
                 last = max(keys)
                 x = nbins - 1 - last % nbins
-                h = hist[x] + (hist[x + 1] if x + 1 < nbins else 0)
-                dd = i32(dsum[x] + (dsum[x + 1] if x + 1 < nbins else 0))
+                h = int(hist[x]) + (int(hist[x + 1]) if x + 1 < nbins else 0)
+                dd = i32(int(dsum[x]) + (int(dsum[x + 1]) if x + 1 < nbins
+                                         else 0))
                 cnt[s, blk, t] = h
                 diag[s, blk, t] = i32(dd // h - NQ)
     return cnt, diag
 
 
-def seed_model(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos, *, k, NQ,
-               nbins, bin_w, occ, max_occ, top_t):
-    """seed_block_kernel in numpy: stream s = 2 * read + strand, its
-    position p valid iff p < len - (k - 1), its code the shift-or of the
-    bytes at p .. p + k - 1 in 32 bits, then :func:`seed_core` with the
-    kernel's dsh = max(2k - SEED_DIR_BITS, 0).  Returns cnt, diag (B, 2,
-    NB, T) int32."""
+def stream_codes(q_fwd, q_rev, read_lens, k, NQ):
+    """The kernel's k-mer codes: stream s = 2 * read + strand, its position
+    p valid iff p < len - (k - 1), its code the shift-or of the bytes at p
+    .. p + k - 1 in 32 bits.  Returns codes, valid (2B, NQ - k + 1)."""
     B = q_fwd.shape[0]
     NK = NQ - k + 1
     codes = np.zeros((2 * B, NK), np.int64)
@@ -200,10 +207,19 @@ def seed_model(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos, *, k, NQ,
                 c = ((c << 2) | int(q[p + j])) & 0xffffffff
             codes[s, p] = i32(c)
             valid[s, p] = p < int(read_lens[s >> 1]) - (k - 1)
+    return codes, valid
+
+
+def seed_model(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos, *, k, NQ,
+               nbins, bin_w, occ, max_occ, top_t):
+    """seed_block_kernel in numpy, its bins in shared memory:
+    :func:`stream_codes`, then :func:`seed_core` with the kernel's dsh =
+    max(2k - SEED_DIR_BITS, 0).  Returns cnt, diag (B, 2, NB, T) int32."""
+    B = q_fwd.shape[0]
     cnt, diag = seed_core(
-        codes, valid, sorted_codes, sorted_pos, NQ=NQ, nbins=nbins,
-        bin_w=bin_w, occ=occ, max_occ=max_occ, top_t=top_t,
-        dsh=tsh.seed_dir_shift(k))
+        *stream_codes(q_fwd, q_rev, read_lens, k, NQ), sorted_codes,
+        sorted_pos, NQ=NQ, nbins=nbins, bin_w=bin_w, occ=occ,
+        max_occ=max_occ, top_t=top_t, dsh=tsh.seed_dir_shift(k))
     NB, T = cnt.shape[1:]
     return cnt.reshape(B, 2, NB, T), diag.reshape(B, 2, NB, T)
 
@@ -514,6 +530,143 @@ def test_seed_shared_memory_of_the_gate_shapes():
         # each block also holds 1 KB for the system; an SM has 228 KB
         assert (2048 // threads * (tsh.seed_smem_bytes(nbins) + static + 1024)
                 <= 228 * 1024)
+
+
+def seed_model_scratch(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos, *,
+                       k, NQ, nbins, bin_w, occ, max_occ, top_t):
+    """seed_block_kernel with its bins in the scratch (past SEED_SMEM_MAX),
+    in numpy: the launches seed_block makes, seed_launch_blocks(NB, 2B,
+    nbins) index blocks each from blk0; in each, pair (stream s, block
+    blk0 + y) owns row y * 2B + s of one scratch of 3 x nbins int32 a
+    pair, reused unzeroed by the next launch, and the outputs land at
+    blk0 + y.  Returns cnt, diag (B, 2, NB, T) int32."""
+    B = q_fwd.shape[0]
+    S, NB = 2 * B, sorted_codes.shape[0]
+    codes, valid = stream_codes(q_fwd, q_rev, read_lens, k, NQ)
+    cnt = np.zeros((S, NB, top_t), np.int32)
+    diag = np.zeros((S, NB, top_t), np.int32)
+    per = tsh.seed_launch_blocks(NB, S, nbins)
+    scratch = np.full((per * S, 3, nbins), -7, np.int64)   # not zeroed
+    for blk0 in range(0, NB, per):
+        part = slice(blk0, min(blk0 + per, NB))
+        cnt[:, part], diag[:, part] = seed_core(
+            codes, valid, sorted_codes[part], sorted_pos[part], NQ=NQ,
+            nbins=nbins, bin_w=bin_w, occ=occ, max_occ=max_occ,
+            top_t=top_t, dsh=tsh.seed_dir_shift(k),
+            bins=lambda s, y: scratch[y * S + s])
+    return (cnt.reshape(B, 2, NB, top_t), diag.reshape(B, 2, NB, top_t))
+
+
+def _wide_bins_case():
+    """Reads at NQ = 512 against 640 kb blocks (k = 11, overlap a quarter)
+    of a 1.5 Mb genome at bin_w 32, the band_width 64 seeder: ~20,000
+    bins, past the 19,348 of one block's shared memory.  Reads from
+    across each block, the far end of the first included (bins past
+    19,348), one from the reverse strand, one empty."""
+    from tests.synth import mutate, revcomp
+    rng = np.random.default_rng(23)
+    g = random_genome(rng, 1_500_000)
+    k, BL, NQ, bin_w = 11, 640_000, 512, 32
+    sc, sp = _index_of(g, k, BL)
+    from aligngraph2_tpu_torch.io.seqdb import encode_seq, revcomp_codes
+    B = 5
+    q_fwd = np.zeros((B, NQ), np.uint8)
+    q_rev = np.zeros((B, NQ), np.uint8)
+    lens = np.zeros(B, np.int32)
+    for r, at in enumerate((630_000, 20_000, 900_000, 1_300_000, None)):
+        if at is None:
+            continue
+        s = mutate(rng, g[at:at + 480], 0.03, 0.01, 0.01)[:NQ]
+        s = revcomp(s) if r == 2 else s
+        c = encode_seq(s)
+        q_fwd[r, :len(c)] = c
+        q_rev[r, :len(c)] = revcomp_codes(c)
+        lens[r] = len(c)
+    nbins = int(np.ceil((BL + NQ) / bin_w)) + 2
+    return (q_fwd, q_rev, lens, sc, sp), dict(
+        k=k, NQ=NQ, nbins=nbins, bin_w=bin_w, occ=4, max_occ=64, top_t=8)
+
+
+@pytest.fixture(scope="module")
+def wide_bins():
+    """The case, and both strands through the JAX package's
+    kmer_codes_batch and _seed_block_candidates as (B, 2, NB, T)."""
+    from aligngraph2_tpu.ops.kmer import kmer_codes_batch as jcodes
+    (q_fwd, q_rev, lens, sc, sp), kw = _wide_bins_case()
+    jkw = {n: v for n, v in kw.items() if n != "k"}
+    per = [jsh._seed_block_candidates(
+        *jcodes(jnp.asarray(q), jnp.asarray(lens), kw["k"]),
+        jnp.asarray(sc), jnp.asarray(sp), **jkw) for q in (q_fwd, q_rev)]
+    want = tuple(np.stack([np.asarray(x[j]) for x in per], 1)
+                 for j in (0, 1))
+    return (q_fwd, q_rev, lens, sc, sp), kw, want
+
+
+def test_seed_plain_equals_jax_past_the_shared_bins(wide_bins):
+    """_seed_reads_ref against the JAX seeder where the bins pass what
+    one block's shared memory holds (the card's scratch layout): every
+    output equal, and the case has what it claims (bins past 19,348, the
+    far end's read found there)."""
+    arrays, kw, want = wide_bins
+    assert kw["nbins"] > 19_348 and tsh.seed_bins_in_scratch(kw["nbins"])
+    got = tsh._seed_reads_ref(*(torch.from_numpy(np.ascontiguousarray(a))
+                                for a in arrays), **kw)
+    for w, t, what in zip(want, got, ("cnt", "diag")):
+        np.testing.assert_array_equal(t.numpy(), w, err_msg=what)
+    cnt, diag = want
+    far = diag[0, 0, 0, 0] + kw["NQ"]   # read 0 at 630 kb of block 0
+    assert cnt[0, 0, 0, 0] > 50 and far // kw["bin_w"] > 19_348
+    assert cnt[2, 1].any() and not cnt[4].any()
+
+
+@pytest.mark.parametrize("budget", [None, 3])
+def test_seed_model_with_scratch_bins_equals_jax(wide_bins, budget,
+                                                 monkeypatch):
+    """The model of the kernel's scratch layout (seed_model_scratch)
+    equals the JAX seeder past the shared bins: with the wrapper's
+    scratch budget (one launch for the case's blocks), and with a budget
+    of one block's pairs a launch (three launches, blk0 0, 1 and 2, the
+    scratch left unzeroed between them)."""
+    arrays, kw, want = wide_bins
+    NB = arrays[3].shape[0]
+    assert NB == 3
+    if budget is not None:
+        monkeypatch.setattr(tsh, "SEED_SCRATCH_BYTES",
+                            2 * 5 * tsh.seed_smem_bytes(kw["nbins"]))
+    per = tsh.seed_launch_blocks(NB, 10, kw["nbins"])
+    assert per == (NB if budget is None else 1)
+    got = seed_model_scratch(*arrays, **kw)
+    for w, t, what in zip(want, got, ("cnt", "diag")):
+        np.testing.assert_array_equal(t, w, err_msg=what)
+
+
+def test_seed_bins_path_at_its_edge():
+    """The wrapper keeps a pair's bins in its cluster leader's shared
+    memory up to 19,348 bins (12 bytes a bin within SEED_SMEM_MAX) and in
+    the scratch past it, in launches of the index blocks whose pairs' bins
+    fit SEED_SCRATCH_BYTES (at least one block); at -b 1000 (1 Mb blocks)
+    the aligner's seeder takes the scratch at band_width 64 and below at
+    every bucket and at 128 past the 131072 bucket, and shared memory at
+    256 up to the 1 Mb bucket."""
+    assert tsh.SEED_SMEM_MAX // 12 == 19_348
+    assert not tsh.seed_bins_in_scratch(19_348)
+    assert tsh.seed_bins_in_scratch(19_349)
+    assert tsh.seed_launch_blocks(600, 64, 19_348) == 600
+    pair = tsh.seed_smem_bytes(19_349)
+    fit = tsh.SEED_SCRATCH_BYTES // (64 * pair)
+    assert tsh.seed_launch_blocks(600, 64, 19_349) == fit
+    assert tsh.seed_launch_blocks(fit - 1, 64, 19_349) == fit - 1
+    assert tsh.seed_launch_blocks(7, 64, 10 ** 8) == 1
+
+    def nbins(band_width, NQ, BL=1_000_000):
+        return int(np.ceil((BL + NQ) / max(band_width // 2, 32))) + 2
+    for NQ in (8192, 131072, 1 << 20):
+        assert tsh.seed_bins_in_scratch(nbins(32, NQ))
+        assert tsh.seed_bins_in_scratch(nbins(64, NQ))
+        assert not tsh.seed_bins_in_scratch(nbins(256, NQ))
+    assert not tsh.seed_bins_in_scratch(nbins(128, 131072))
+    assert tsh.seed_bins_in_scratch(nbins(128, 262144))
+    assert nbins(32, 8192) == 31_508 and nbins(32, 131072) == 35_348
 
 
 # ---------------------------------------------------------------------------
