@@ -186,8 +186,10 @@ class RuntimeConfig:
     block_axis: str = "block"       # mesh axis: genome-block sharding
     sharded_align: bool | None = None  # run alignment under the device mesh
                                     # (None = auto: sharded iff the device
-                                    # is cuda and more than one card is
-                                    # present)
+                                    # is cuda and this process owns more
+                                    # than one card; the mesh holds only
+                                    # the cards it owns,
+                                    # parallel.distributed.local_cards)
     block_parallel: int | None = None  # devices on the block axis
                                     # (None = auto, see parallel/mesh.py)
     progress: bool = True           # console progress bar on long loops

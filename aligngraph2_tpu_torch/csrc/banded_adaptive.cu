@@ -998,6 +998,19 @@ cudaError_t launch_tb(const uint8_t* dirs, const int32_t* centers,
   return cudaSuccess;
 }
 
+// The caller's current device, put back when an entry point returns by
+// any path: an entry switches to its tensors' card, and the caller's later
+// allocations follow the runtime's current device.
+struct CallerDevice {
+  int device = -1;
+  CallerDevice() {
+    if (cudaGetDevice(&device) != cudaSuccess) device = -1;
+  }
+  ~CallerDevice() {
+    if (device >= 0) cudaSetDevice(device);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -1008,6 +1021,7 @@ int agc_dp_adaptive(int device, const void* q, const void* t,
                     int gap, int x_drop, int packed, void* score,
                     void* best_i, void* best_j, void* dirs, void* centers,
                     void* rows, void* c_last, void* stream) {
+  const CallerDevice caller;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0) return 0;
@@ -1051,6 +1065,7 @@ int agc_tb_adaptive(int device, const void* dirs, const void* centers,
                     const void* best_i, const void* best_j, int B, int NQ,
                     int W, int max_steps, int stride, void* moves, void* n,
                     void* si, void* sj, void* stream) {
+  const CallerDevice caller;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0) return 0;

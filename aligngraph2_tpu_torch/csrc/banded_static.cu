@@ -588,6 +588,19 @@ int launch_dp_w(int W, const uint8_t* q, const uint8_t* t,
   }
 }
 
+// The caller's current device, put back when an entry point returns by
+// any path: an entry switches to its tensors' card, and the caller's later
+// allocations follow the runtime's current device.
+struct CallerDevice {
+  int device = -1;
+  CallerDevice() {
+    if (cudaGetDevice(&device) != cudaSuccess) device = -1;
+  }
+  ~CallerDevice() {
+    if (device >= 0) cudaSetDevice(device);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -596,6 +609,7 @@ int agc_dp_static(int device, const void* q, const void* t, const void* qlen,
                   int B, int NQ, int W, int K, int match, int mismatch,
                   int gap, int x_drop, void* score, void* best_i,
                   void* best_j, void* rows, void* words, void* stream) {
+  const CallerDevice caller;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0) return 0;
@@ -618,6 +632,7 @@ int agc_tb_static(int device, const void* words, const void* best_i,
                   const void* best_j, int B, int NW16, int W, int max_steps,
                   int stride, void* moves, void* n, void* si, void* sj,
                   void* stream) {
+  const CallerDevice caller;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0) return 0;

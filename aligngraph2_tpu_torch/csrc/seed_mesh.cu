@@ -551,6 +551,19 @@ select_candidates_kernel(const int32_t* __restrict__ cnt,
   }
 }
 
+// The caller's current device, put back when an entry point returns by
+// any path: an entry switches to its tensors' card, and the caller's later
+// allocations follow the runtime's current device.
+struct CallerDevice {
+  int device = -1;
+  CallerDevice() {
+    if (cudaGetDevice(&device) != cudaSuccess) device = -1;
+  }
+  ~CallerDevice() {
+    if (device >= 0) cudaSetDevice(device);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -564,6 +577,7 @@ int agc_seed_block(int device, const void* q_fwd, const void* q_rev,
                    int NQ, int k, int NB, int L, int nbins, int bin_w,
                    int occ, int max_occ, int T, int C, int blk0, int nblk,
                    void* scratch, void* cnt, void* diag, void* stream) {
+  const CallerDevice caller;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0 || k < 1 || k > 15 || NQ < k || NB <= 0 || NB > 65535 ||
@@ -614,6 +628,7 @@ int agc_select_candidates(int device, const void* cnt, const void* tid,
                           float beta, int bin_w, int do_prune, float prune,
                           int slots, void* scratch, void* sel, void* idx,
                           void* score, void* stream) {
+  const CallerDevice caller;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0 || N <= 0 || K <= 0 || bin_w < 0 || bin_w > (1 << 30) ||

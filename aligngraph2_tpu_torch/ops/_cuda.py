@@ -126,7 +126,10 @@ def sm_count(index: int) -> int:
 
 
 def launch_target(dev):
-    """(device index, current stream handle) of a CUDA device."""
+    """(device index, current stream handle) of a CUDA device.  Each C
+    entry switches to that device and puts the caller's current device
+    back before it returns, so a wrapper called on another card's
+    tensors leaves ``torch.cuda.current_device()`` as it was."""
     import torch
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return index, torch.cuda.current_stream(dev).cuda_stream

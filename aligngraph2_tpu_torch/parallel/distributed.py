@@ -9,6 +9,9 @@ Counterpart of ``aligngraph2_tpu/parallel/distributed.py``, with
     ``WORLD_SIZE``/``RANK``/``MASTER_ADDR`` environment that ``torchrun``
     sets; the process group carries CPU tensors over gloo and, where a
     card is present, CUDA tensors over NCCL (``cpu:gloo,cuda:nccl``);
+  * each process owns the cards :func:`local_cards` gives it (the JAX
+    package's ``jax.local_devices()``): its device mesh and its current
+    card are among them, and no two processes share a card;
   * input reads are sharded BY PROCESS with :func:`host_shard` — each
     process aligns only its slice of the reads;
   * per-process results are merged with the helpers below: byte blobs and
@@ -41,10 +44,13 @@ def init_distributed(init_method: Optional[str] = None,
     the ``torchrun`` environment (``WORLD_SIZE``, ``RANK``,
     ``MASTER_ADDR``/``MASTER_PORT``) is read.  With neither, or with one
     process, nothing is initialised and the rank is 0.  Where CUDA is
-    present each process takes card ``LOCAL_RANK`` (else its rank) modulo
-    the card count, so NCCL sees one card per process on a host.  The
-    group is destroyed when the process exits: left to the interpreter's
-    teardown, gloo's threads can abort a process that has finished."""
+    present each process owns the cards :func:`local_cards` names and
+    takes the first of them as its current card, so NCCL sees one card
+    per process; a host with more processes than cards raises
+    ValueError before the group is joined (two ranks on one card would
+    fail NCCL's first collective).  The group is destroyed when the
+    process exits: left to the interpreter's teardown, gloo's threads can
+    abort a process that has finished."""
     if dist.is_initialized():
         return dist.get_rank()
     env = os.environ
@@ -57,8 +63,13 @@ def init_distributed(init_method: Optional[str] = None,
         return 0
     backend = "gloo"
     if torch.cuda.is_available():
-        local = int(env.get("LOCAL_RANK", rank))
-        torch.cuda.set_device(local % torch.cuda.device_count())
+        local_rank, local_world = _local_slot(rank, world_size)
+        n_cards = torch.cuda.device_count()
+        if local_world > n_cards:
+            raise ValueError(
+                f"{local_world} processes on this host but {n_cards} "
+                f"CUDA cards: each process needs a card of its own")
+        torch.cuda.set_device(local_rank)
         backend = "cpu:gloo,cuda:nccl"
     kw = {}
     if timeout_s is not None:
@@ -67,6 +78,27 @@ def init_distributed(init_method: Optional[str] = None,
                             world_size=world_size, rank=rank, **kw)
     atexit.register(_destroy)
     return rank
+
+
+def _local_slot(rank: int, world_size: int) -> tuple:
+    """(local rank, processes on this host): ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` as ``torchrun`` sets them, else the rank and the
+    world size (every process on one host)."""
+    env = os.environ
+    return (int(env.get("LOCAL_RANK", rank)),
+            int(env.get("LOCAL_WORLD_SIZE", world_size)))
+
+
+def local_cards() -> list:
+    """The CUDA card indices this process owns (``jax.local_devices``):
+    every card with no process group or one process; in a group, card i
+    iff i % (processes on this host) == this process's local rank
+    (:func:`_local_slot`).  Empty without CUDA."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if process_count() <= 1:
+        return list(range(n))
+    local_rank, local_world = _local_slot(process_index(), process_count())
+    return [i for i in range(n) if i % local_world == local_rank]
 
 
 def _destroy() -> None:

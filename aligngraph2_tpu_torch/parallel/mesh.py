@@ -23,6 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .distributed import local_cards
+
 
 @dataclass(frozen=True, eq=False)
 class Mesh:
@@ -44,15 +46,16 @@ class Mesh:
 def make_mesh(n_devices: int | None = None, block_parallel: int | None = None,
               data_axis: str = "data", block_axis: str = "block",
               devices=None) -> Mesh:
-    """Build a (data, block) mesh over the local CUDA cards.
+    """Build a (data, block) mesh over the CUDA cards this process owns
+    (``distributed.local_cards``: every local card in a single-process
+    run, the process's own in a multi-process one).
 
     ``block_parallel`` defaults to 2 when at least 4 devices are present,
     else 1 (all devices data-parallel).  ``devices`` overrides the device
     list; ``n_devices`` keeps its first n.  Raises when there is no
     device, or when ``block_parallel`` does not divide the count."""
     if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices = [torch.device("cuda", i) for i in local_cards()]
     devs = [torch.device(d) for d in devices]
     if n_devices is not None:
         devs = devs[:n_devices]

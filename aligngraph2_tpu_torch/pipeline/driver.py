@@ -105,18 +105,20 @@ def run_pipeline(read_path: str, ctg_path: str, genome_path: str,
 
 
 def _make_mesh(cfg: PipelineConfig):
-    """The (data, block) mesh over this process's own devices — every
-    local card, or the one CPU device — with its block axis sized by
-    cfg.runtime.block_parallel (auto when None).  None when sharding is
-    off, which by default it is unless the device is cuda and more than
-    one card is present; the aligner then takes host seeding and the
-    static band."""
-    import torch
+    """The (data, block) mesh over this process's own devices — the cards
+    it owns (``distributed.local_cards``: every local card with one
+    process, its own share under a process group), or the one CPU
+    device — with its block axis sized by cfg.runtime.block_parallel
+    (auto when None).  None when sharding is off, which by default it is
+    unless the device is cuda and the process owns more than one card
+    (the JAX package's ``jax.local_device_count() > 1``); the aligner
+    then takes host seeding and the static band."""
+    from ..parallel.distributed import local_cards
     from ..parallel.mesh import make_mesh
     on_card = cfg.runtime.device == "cuda"
     sharded = cfg.runtime.sharded_align
     if sharded is None:
-        sharded = on_card and torch.cuda.device_count() > 1
+        sharded = on_card and len(local_cards()) > 1
     if not sharded:
         return None
     return make_mesh(block_parallel=cfg.runtime.block_parallel,

@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (aligngraph2_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--genome-mb 1]
+    python3 chip_smoke.py --cards N      # several cards: see the end
 
 Builds the kernels (three CUDA sources) and the five host cores from this
 checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
@@ -58,6 +59,12 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
           under torch.profiler; the first MESH_CPU_READS reads also
           through the mesh path on the CPU in a second child process:
           their .ref text must be equal;
+  mesh_grid the same reads on meshes that list the card four times, 2x2
+          and 1x4: the block axis's split and concatenation and a
+          per-shard index on a card; each .ref text must equal the mesh
+          phase's on every read, each seeder and adaptive kernel must
+          launch (no static-band launch, no plain version on the card);
+          wall, reads/s, seeder and extender calls;
   seed_gate the histogram kernel (both strands' k-mer codes and
           histograms in one launch) against its plain version (each
           strand's kmer_codes_batch, then the plain histogram) on the
@@ -122,12 +129,45 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
   total   the script's wall so far;
   kernels one entry per CUDA kernel with its launches (the static
           band's in the pipeline and widths phases, the adaptive band's
-          in the long_read, mesh and widths phases, the seeder's in the
-          mesh and widths phases), error, times and bound.
+          in the long_read, mesh, mesh_grid and widths phases, the
+          seeder's in the mesh, mesh_grid and widths phases), error,
+          times and bound.
 
 then the card's name and power limit as nvidia-smi prints them and, last,
 {"ok": true, "device": {...}}.  Any failure exits nonzero before that
 line; so does a machine without CUDA or a directory without the package.
+
+With ``--cards N`` (N >= 2 cards present, else it fails) the script
+builds, prints every card's line and the probe, and runs only these
+phases, on cards 0 .. N-1 (the one-card phases take the single-device
+path, which is not the default on such a host); each fails rather than
+skips:
+
+  cards_mesh read -> contig of every read of the stage dataset on the
+          1x1 mesh of card 0, then on meshes of real cards (2x1 and 1x2;
+          past two cards N x 1, N/2 x 2 and 1 x N): .ref text equal to
+          card 0's on every read; every card launches the seed kernel
+          and both adaptive kernels, the dedup kernel runs on each data
+          row's first card; the current card unchanged by each run and by
+          seed_block and banded_align called directly on the last card;
+          wall, reads/s, seeder and extender calls, bytes copied between
+          cards, launches by kernel and card;
+  cards_pipeline the pipeline phase's 5 Mb dataset through the CLI at its
+          defaults in one process on the N cards (the mesh on, 2x2 at
+          four) and on card 0 with sharded_align on (1x1): the five
+          outputs equal; then on card 0 at the defaults (the
+          single-device path); stage walls, identity to the truth;
+  cards_processes the cli phase's dataset through the CLI in the
+          torchrun environment: N processes of one card each (the mesh
+          off) against one process on card 0, N/2 processes of two cards
+          each (a 2x1 mesh each) against one on card 0 with a 1x1 mesh;
+          the five outputs and the solid set equal, the k-mer count sum on
+          each process's card (NCCL), no process allocating on a card it
+          does not own;
+  cards_launches each kernel's launches by card in these phases;
+
+then every card's line and the contract line, its count the cards
+present.
 """
 
 from __future__ import annotations
@@ -198,6 +238,20 @@ MESH_CPU_READS = 32            # the mesh phase's first reads, also on
 WIDTHS_BAND = 2048
 WIDTHS_MESH = dict(band_width=32, block_size=1_000_000)
 WIDTHS_READS = 200
+# the mesh_grid phase: meshes that list the one card four times, with 2
+# and 4 devices on the block axis (2x2 and 1x4)
+MESH_GRID = (2, 4)
+# the kernel each wrapper names when it checks its launch (ops/_cuda.py
+# ``check``): the per-card launch counts of CardLaunches
+KERNEL_OF_LAUNCH = {"dp_static_kernel launch": "banded_dp_static",
+                    "tb_static_kernel launch": "traceback_static",
+                    "dp_adaptive_kernel launch": "banded_align",
+                    "tb_adaptive_kernel launch": "traceback",
+                    "seed_block_kernel launch": "seed_block",
+                    "select_candidates_kernel launch": "select_candidates"}
+# the --cards phases' subprocesses: seconds each may take
+CARDS_PIPELINE_TIMEOUT = 600
+CARDS_CLI_TIMEOUT = 300
 MERGE_SWEEP_ROWS = (10 ** 5, 10 ** 6, 10 ** 7)
 # the pipeline phase's dataset: bench_e2e.py's 5 Mb PacBio recipe
 PIPELINE_DATA = dict(genome_len=5_000_000, coverage=20, mean_read=9000,
@@ -281,11 +335,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi() -> list:
+    """Each card's name and power limit, a line a card, as nvidia-smi
+    prints them."""
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
+    return res.stdout.strip().splitlines()
 
 
 def build_all() -> dict:
@@ -1841,7 +1897,7 @@ def mesh(args, regs, reads, ctgs, mesh_cpu) -> tuple:
     card's.  Then the seeder's kernels against their plain versions
     (:func:`seed_gate`, :func:`select_gate`) on the run's block index and
     settings.  Returns the adaptive kernels' launches, the seeder
-    kernels' and the two gates' timings."""
+    kernels', the two gates' timings and the run's .ref text."""
     import torch
     from aligngraph2_tpu_torch.align.aligner import LongReadAligner
     from aligngraph2_tpu_torch.align.records import AlignmentSet
@@ -1920,7 +1976,7 @@ def mesh(args, regs, reads, ctgs, mesh_cpu) -> tuple:
         K=cfg.max_candidates, min_hits=cfg.min_block_hits, alpha=cfg.alpha,
         beta=cfg.beta, bin_w=max(cfg.band_width // 2, 32),
         prune=cfg.prune_ratio), regs)
-    return launches, s_launches, seed_t, select_t
+    return launches, s_launches, seed_t, select_t, alns.to_ref_text()
 
 
 def widths_mesh_on_cpu(seed):
@@ -2100,6 +2156,598 @@ def widths(args, widths_cpu) -> dict:
                 "select_candidates"), mesh_extra)
     check_records(alns, reads, sim)
     return total
+
+
+class CardLaunches:
+    """Each kernel's launches by card while open: {kernel: {card: n}}.
+    Every wrapper asks ``_cuda.launch_target`` for its card before it
+    launches and hands each launch's return code to ``_cuda.check``
+    (KERNEL_OF_LAUNCH names the kernel); both are module attributes,
+    which is what is replaced here, so a launch counts on the card it
+    ran on once it succeeded.  No package file changes."""
+
+    def __enter__(self):
+        from aligngraph2_tpu_torch.ops import _cuda
+        self._cuda = _cuda
+        self._saved = (_cuda.launch_target, _cuda.check)
+        self.counts = {name: {} for name in KERNEL_OF_LAUNCH.values()}
+        target, check = self._saved
+        card = [None]
+
+        def launch_target(dev):
+            index, stream = target(dev)
+            card[0] = index
+            return index, stream
+
+        def counted(lib, code, what):
+            check(lib, code, what)
+            per = self.counts[KERNEL_OF_LAUNCH[what]]
+            per[card[0]] = per.get(card[0], 0) + 1
+
+        _cuda.launch_target, _cuda.check = launch_target, counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cuda.launch_target, self._cuda.check = self._saved
+
+
+def add_card_launches(total, counts) -> None:
+    """Add ``counts`` ({kernel: {card: n}}, cards as ints or as the
+    strings JSON makes of them) into ``total``."""
+    for name, per in counts.items():
+        into = total.setdefault(name, {})
+        for card, n in per.items():
+            into[int(card)] = into.get(int(card), 0) + n
+
+
+class MeshCounts:
+    """The mesh path's calls while open, with no synchronisation (the
+    walls stay the run's): ``seeder`` and ``extender`` count the calls of
+    the callables make_sharded_seeder and make_sharded_extender build;
+    ``card_bytes`` adds up the bytes _seed_body copies between two cards:
+    a data row's reads and lengths to each block shard on another card,
+    and that shard's candidate tables (cnt and diag, int32 (B, 2, NB_l,
+    K)) and block metadata back to the row's first card.  The package
+    calls these through module attributes, which is what is replaced."""
+
+    def __enter__(self):
+        from aligngraph2_tpu_torch.parallel import sharded
+        self._mod = sharded
+        self.seeder = self.extender = self.card_bytes = 0
+        self._saved = {n: getattr(sharded, n) for n in (
+            "make_sharded_seeder", "make_sharded_extender", "_seed_body")}
+
+        def counted(key):
+            make = self._saved[f"make_sharded_{key}"]
+
+            def build(*a, **kw):
+                fn = make(*a, **kw)
+
+                def call(*arrays):
+                    setattr(self, key, getattr(self, key) + 1)
+                    return fn(*arrays)
+                return call
+            return build
+
+        body = self._saved["_seed_body"]
+
+        def seed_body(q_fwd, q_rev, read_lens, index_row, **kw):
+            reads = tensor_bytes(q_fwd, q_rev, read_lens)
+            for bseq, bstart, sc, *_ in index_row:
+                if sc.device != q_fwd.device:
+                    tables = 2 * q_fwd.shape[0] * 2 * len(bseq) * kw["K"] * 4
+                    self.card_bytes += (reads + tables
+                                        + tensor_bytes(bseq, bstart))
+            return body(q_fwd, q_rev, read_lens, index_row, **kw)
+
+        sharded.make_sharded_seeder = counted("seeder")
+        sharded.make_sharded_extender = counted("extender")
+        sharded._seed_body = seed_body
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._mod, name, fn)
+
+
+def sync_all() -> None:
+    """Wait for every card."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_run(mesh, reads, ctgs):
+    """Read -> contig for every read on ``mesh``, launch counts zeroed
+    first, under CardLaunches, MeshCounts and RefCalls: (line of numbers,
+    AlignmentSet, launches by kernel and card, static-band launches, plain
+    calls on a card, the aligner)."""
+    import torch
+    from aligngraph2_tpu_torch.align.aligner import LongReadAligner
+    from aligngraph2_tpu_torch.config import AlignerConfig
+    from aligngraph2_tpu_torch.ops import banded_static as bs
+
+    n = len(reads)
+    zero_launches()
+    before = torch.cuda.current_device()
+    with CardLaunches() as cl, MeshCounts() as mc, RefCalls() as rc:
+        t0 = time.perf_counter()
+        al = LongReadAligner(ctgs, AlignerConfig(), mesh=mesh)
+        al._ensure_sharded_index()
+        sync_all()
+        index_s = time.perf_counter() - t0
+        alns = al.align_reads(reads, ids=range(n))
+        sync_all()
+        wall = time.perf_counter() - t0
+    line = {"mesh": mesh.shape,
+            "devices": [str(d) for d in mesh.devices.flat], "reads": n,
+            "wall_s": wall, "reads_per_s": n / wall, "index_s": index_s,
+            "seeder_calls": mc.seeder, "extender_calls": mc.extender,
+            "card_copy_bytes": mc.card_bytes, "alignments": len(alns),
+            "aligned_reads": len({a.query_name for a in alns}),
+            "current_card": [before, torch.cuda.current_device()]}
+    static = bs.banded_dp_static.launches + bs.traceback_static.launches
+    return line, alns, cl.counts, static, rc.cuda_calls, al
+
+
+def mesh_grid(reads, ctgs, ref_text) -> dict:
+    """Read -> contig for every read of the stage dataset on meshes that
+    list the one card four times (MESH_GRID: 2x2 and 1x4): the block
+    axis's split and concatenation and a per-shard index on a card.  Each
+    .ref text must equal the mesh phase's 1x1 text on every read; each
+    seeder and adaptive kernel must launch, and no static-band kernel or
+    plain version may run on the card.  A line per mesh: wall, reads/s,
+    seeder and extender calls, launches.  Returns each kernel's launches
+    summed over the meshes."""
+    import torch
+    from aligngraph2_tpu_torch.parallel.mesh import make_mesh
+
+    total = dict.fromkeys(all_launches(), 0)
+    for block in MESH_GRID:
+        mesh = make_mesh(devices=[torch.device("cuda", 0)] * 4,
+                         block_parallel=block)
+        line, alns, _, static, plain, _ = mesh_run(mesh, reads, ctgs)
+        launches = all_launches()
+        for k, v in launches.items():
+            total[k] += v
+        same = alns.to_ref_text() == ref_text
+        emit({"phase": "mesh_grid", **line, "launches": launches,
+              "plain_calls_on_card": plain, "ref_text_equal_1x1": same})
+        if not same:
+            raise SystemExit(f"mesh_grid {mesh.shape}: .ref text differs "
+                             "from the 1x1 mesh's")
+        need = ("banded_align", "traceback", "seed_block",
+                "select_candidates")
+        if static or plain or not all(launches[k] for k in need):
+            raise SystemExit(f"mesh_grid {mesh.shape}: launches {launches}, "
+                             f"{plain} plain calls on the card")
+    return total
+
+
+def cards_shapes(n: int) -> list:
+    """The (data, block) meshes of real cards for --cards n: 2x1 and 1x2
+    of cards 0 and 1; past two cards n x 1, (n/2) x 2 for an even n, and
+    1 x n."""
+    shapes = [(2, 1), (1, 2)]
+    if n > 2:
+        shapes += [(n, 1)] + ([(n // 2, 2)] if n % 2 == 0 else []) \
+            + [(1, n)]
+    return shapes
+
+
+def off_card_calls(index, k, reads, ctgs, seed, last) -> dict:
+    """seed_block and banded_align called directly on tensors on card
+    ``last`` while card 0 is current, outside any device guard: the
+    current card must be 0 after each, every output on ``last``, and
+    equal to the same call's on card 0 (the first seed_gate shape; the
+    adaptive gate's first shape)."""
+    import numpy as np
+    import torch
+    from aligngraph2_tpu_torch.ops import banded_dp as bd
+    from aligngraph2_tpu_torch.parallel import sharded
+
+    dev = torch.device("cuda", last)
+    _, arrays, kw = next(seed_gate_shapes(index, k, reads, ctgs, seed))
+    B, NQ, W, x_drop = ADAPTIVE_GATE[0]
+    lanes = tuple(torch.from_numpy(x).cuda() for x in adaptive_lanes(
+        np.random.default_rng(seed + 2), B, NQ, W))
+    calls = {
+        "seed_block": (lambda a: sharded.seed_block(*a, **kw), arrays),
+        "banded_align": (lambda a: tuple(bd.banded_align(
+            *a, W=W, x_drop=x_drop)), lanes)}
+    out = {}
+    for name, (fn, args) in calls.items():
+        want = fn(args)
+        moved = tuple(x.to(dev) for x in args)
+        torch.cuda.set_device(0)
+        got = fn(moved)
+        current = torch.cuda.current_device()
+        on = sorted({str(g.device) for g in got})
+        equal = all(torch.equal(w, g.to(w.device)) for w, g in zip(want, got))
+        out[name] = {"card": last, "current_after": current,
+                     "outputs_on": on, "equal_to_card_0": equal}
+        if current != 0 or on != [str(dev)] or not equal:
+            raise SystemExit(f"cards_mesh: {name} on card {last}: current "
+                             f"card {current} after it, outputs on {on}, "
+                             f"equal to card 0's {equal}")
+    return out
+
+
+def cards_mesh(args, n, reads, ctgs) -> dict:
+    """Read -> contig for every read of the stage dataset on the 1x1 mesh
+    of card 0 (after a warm-up run on the n x 1 mesh), then on each
+    cards_shapes(n) mesh of real cards: every
+    .ref text equal to card 0's; every card of a mesh launches the seed
+    kernel and both adaptive kernels, the dedup kernel runs on each data
+    row's first card (the row's gather) and on no other; the current
+    card is the same before and after each run; and direct wrapper calls
+    on the last card (:func:`off_card_calls`).  A line per mesh: wall,
+    reads/s, seeder and extender calls, bytes copied between cards,
+    launches by kernel and card.  Returns the launches by kernel and card
+    over the meshes of real cards."""
+    import torch
+    from aligngraph2_tpu_torch.parallel.mesh import make_mesh
+
+    # one run over every card first, so that no measured run pays a
+    # card's first use (its context, the kernels' modules)
+    every = make_mesh(devices=[torch.device("cuda", i) for i in range(n)],
+                      block_parallel=1)
+    emit({"phase": "cards_mesh", "warm_up": True,
+          **mesh_run(every, reads, ctgs)[0]})
+    line, alns, _, _, _, ref_al = mesh_run(
+        make_mesh(devices=[torch.device("cuda", 0)]), reads, ctgs)
+    ref_text = alns.to_ref_text()
+    emit({"phase": "cards_mesh", **line, "reference": True})
+    total = {}
+    for data, block in cards_shapes(n):
+        mesh = make_mesh(devices=[torch.device("cuda", i)
+                                  for i in range(data * block)],
+                         block_parallel=block)
+        line, alns, counts, static, plain, _ = mesh_run(mesh, reads, ctgs)
+        add_card_launches(total, counts)
+        same = alns.to_ref_text() == ref_text
+        cards = [d.index for d in mesh.devices.flat]
+        homes = {d.index for d in mesh.devices[:, 0]}
+        missing = [(name, c) for name in ("seed_block", "banded_align",
+                                          "traceback")
+                   for c in cards if not counts[name].get(c)]
+        missing += [("select_candidates", c) for c in homes
+                    if not counts["select_candidates"].get(c)]
+        stray = sorted(set(counts["select_candidates"]) - homes) + sorted(
+            c for per in counts.values() for c in per if c not in cards)
+        emit({"phase": "cards_mesh", **line, "launches_by_card": counts,
+              "plain_calls_on_card": plain, "static_launches": static,
+              "ref_text_equal_card_0": same})
+        if not same:
+            raise SystemExit(f"cards_mesh {mesh.shape}: .ref text differs "
+                             "from card 0's 1x1 mesh")
+        if missing or stray or static or plain:
+            raise SystemExit(f"cards_mesh {mesh.shape}: not launched "
+                             f"{missing}, launched off their cards {stray}, "
+                             f"{static} static launches, {plain} plain calls")
+        if len(set(line["current_card"])) != 1:
+            raise SystemExit(f"cards_mesh {mesh.shape}: the current card "
+                             f"moved {line['current_card']}")
+    calls = off_card_calls(ref_al._block_index, ref_al.cfg.seed_k, reads,
+                           ctgs, args.seed, n - 1)
+    emit({"phase": "cards_mesh", "off_card_calls": calls})
+    return total
+
+
+def cli_worker(report: str, sharded: str, argv: list) -> int:
+    """One process of a --cards phase (``python3 chip_smoke.py --cli-worker
+    REPORT 0|1 <CLI flags>``, in the environment its parent sets): the
+    port's CLI on ``argv`` in this process, with ``sharded_align`` forced
+    on when ``sharded`` is 1.  Writes to REPORT, as JSON: the rank and
+    world size, the cards the process owns (local_cards) and its current
+    card, the mesh run_pipeline built (shape and cards, or None), the
+    all_reduce calls by the device of their tensor (the dense k-mer count
+    sum is the one on a card: NCCL), each kernel's launches by card, and
+    the cards on which torch allocated memory (peak bytes by card)."""
+    import torch
+    sys.path.insert(0, HERE)
+    from aligngraph2_tpu_torch import cli
+    from aligngraph2_tpu_torch.parallel import distributed
+    from aligngraph2_tpu_torch.pipeline import driver
+
+    seen = {"mesh": None, "all_reduce": {}}
+    make = driver._make_mesh
+
+    def traced_mesh(cfg):
+        if sharded == "1":
+            cfg.runtime.sharded_align = True
+        mesh = make(cfg)
+        if mesh is not None:
+            seen["mesh"] = {"shape": mesh.shape,
+                            "cards": [d.index for d in mesh.devices.flat]}
+        return mesh
+
+    all_reduce = torch.distributed.all_reduce
+
+    def traced_all_reduce(t, *a, **kw):
+        key = str(t.device)
+        seen["all_reduce"][key] = seen["all_reduce"].get(key, 0) + 1
+        return all_reduce(t, *a, **kw)
+
+    driver._make_mesh = traced_mesh
+    torch.distributed.all_reduce = traced_all_reduce
+    t0 = time.perf_counter()
+    with CardLaunches() as cl:
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    peak = {i: torch.cuda.max_memory_allocated(i)
+            for i in range(torch.cuda.device_count())}
+    with open(report, "w") as f:
+        json.dump({"rank": distributed.process_index(),
+                   "world": distributed.process_count(),
+                   "local_cards": distributed.local_cards(),
+                   "current_card": torch.cuda.current_device(),
+                   "mesh": seen["mesh"], "all_reduce": seen["all_reduce"],
+                   "launches_by_card": cl.counts,
+                   "allocated_cards": [i for i, b in peak.items() if b],
+                   "peak_bytes_by_card": peak, "rc": rc, "wall_s": wall},
+                  f)
+    return rc
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_cli(d, name, argv, nprocs, cards, sharded):
+    """The CLI on ``argv`` in ``nprocs`` processes (:func:`cli_worker`),
+    each seeing ``cards``, with the environment torchrun gives them
+    (WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT; none for one process), the backend switches at their
+    default, writing to ``d``/``name``: (out dir, [(Popen, report path,
+    log path)])."""
+    out = os.path.join(d, name)
+    env = {k: v for k, v in os.environ.items() if k not in SWITCHES}
+    env["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, cards))
+    # the group's sockets on the loopback device: no host name lookup
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    port = str(free_port())
+    procs = []
+    for rank in range(nprocs):
+        if nprocs > 1:
+            env.update(WORLD_SIZE=str(nprocs), RANK=str(rank),
+                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(nprocs),
+                       MASTER_ADDR="localhost", MASTER_PORT=port)
+        report = os.path.join(d, f"{name}.{rank}.json")
+        log = os.path.join(d, f"{name}.{rank}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--cli-worker", report, "1" if sharded else "0", *argv,
+                 "-o", out], cwd=HERE, env=dict(env), stdout=f,
+                stderr=subprocess.STDOUT), report, log))
+    return out, procs
+
+
+def wait_cli(name, procs, timeout) -> list:
+    """Wait for the processes of :func:`start_cli` (all of them killed
+    once one fails or the time is up); their reports, in rank order."""
+    deadline = time.monotonic() + timeout
+    failed = None
+    for p, _, log in procs:
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            failed = failed or f"timed out after {timeout} s"
+        if p.returncode:
+            failed = failed or f"exited {p.returncode}"
+        if failed:
+            for q, _, _ in procs:
+                q.kill()
+                q.wait()
+            with open(log) as f:
+                tail = f.read()[-4000:]
+            raise SystemExit(f"{name}: a process {failed}:\n{tail}")
+    reports = []
+    for _, report, _ in procs:
+        with open(report) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def same_files(a, b, names) -> dict:
+    """{name: whether file ``name`` is byte for byte the same in
+    directories ``a`` and ``b``}."""
+    out = {}
+    for name in names:
+        with open(os.path.join(a, name), "rb") as f1, \
+                open(os.path.join(b, name), "rb") as f2:
+            out[name] = f1.read() == f2.read()
+    return out
+
+
+def check_owned(name, reports) -> None:
+    """Each process allocated memory only on the cards it owns."""
+    for r in reports:
+        if not set(r["allocated_cards"]) <= set(r["local_cards"]):
+            raise SystemExit(f"{name}: rank {r['rank']} allocated on cards "
+                             f"{r['allocated_cards']}, owns "
+                             f"{r['local_cards']}")
+
+
+def cards_pipeline(args, n) -> dict:
+    """The 5 Mb PacBio pipeline (PIPELINE_DATA) through the CLI at its
+    default flags and switches, in one process on cards 0 .. n-1, where
+    the mesh is on by default (2x2 at four cards), and in one process on
+    card 0 with sharded_align on (a 1x1 mesh): the five outputs must be
+    equal.  Then the same in one process on card 0 at the defaults, the
+    single-device path a one-card user runs (host seeding, the static
+    band; its .ref files differ by design, so only its walls and
+    identity are compared).  Stage walls of each, identity of the
+    longest output to the truth.  Returns the launches by kernel and
+    card of the runs."""
+    import tempfile
+    from aligngraph2_tpu_torch.io.fasta import read_seqs
+    from tests.synth import make_dataset
+
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as d:
+        t0 = time.perf_counter()
+        ds = make_dataset(seed=args.seed, **PIPELINE_DATA)
+        paths = write_inputs(ds, d)
+        setup_s = time.perf_counter() - t0
+        argv = ["-r", paths[0], "-c", paths[1], "-g", paths[2]]
+        runs = {}
+        for name, cards, sharded in (("cards", range(n), False),
+                                     ("card_0_mesh", [0], True),
+                                     ("card_0", [0], False)):
+            t0 = time.perf_counter()
+            out, procs = start_cli(d, name, argv, 1, cards, sharded)
+            (report,) = wait_cli(name, procs, CARDS_PIPELINE_TIMEOUT)
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out, "metrics.json")) as f:
+                metrics = json.load(f)
+            recs = list(read_seqs(os.path.join(out, "final.fasta")))
+            longest = max(recs, key=lambda r: len(r[1]), default=("", ""))
+            ident, covered, _ = identity_to_truth(longest[1], ds["genome"])
+            add_card_launches(total, report["launches_by_card"])
+            runs[name] = out
+            emit({"phase": "cards_pipeline", "run": name,
+                  "cards": list(cards), "setup_s": setup_s,
+                  "process_s": wall, "wall_s": metrics["wall_s"],
+                  "reads_per_s": metrics["n_reads"] / metrics["wall_s"],
+                  "stage_s": metrics["stage_s"],
+                  "sharded_align": metrics["sharded_align"],
+                  "mesh": metrics.get("mesh"), "mesh_cards":
+                  (report["mesh"] or {}).get("cards"),
+                  "n_chains": metrics["n_chains"],
+                  "final_records": len(recs),
+                  "identity_to_truth": ident, "covered_share": covered,
+                  "launches_by_card": report["launches_by_card"],
+                  "allocated_cards": report["allocated_cards"]})
+            check_owned(f"cards_pipeline {name}", [report])
+            # make_mesh's default block axis: 2 from four devices on
+            block = 2 if len(cards) >= 4 else 1
+            want = ({"data": len(cards) // block, "block": block}
+                    if name != "card_0" else None)
+            if metrics["sharded_align"] != (want is not None) or \
+                    metrics.get("mesh") != want:
+                raise SystemExit(f"cards_pipeline {name}: mesh "
+                                 f"{metrics.get('mesh')}, {want} wanted")
+            if ident <= 0.85:
+                raise SystemExit(f"cards_pipeline {name}: identity {ident}")
+        same = same_files(runs["cards"], runs["card_0_mesh"], OUTPUTS)
+        emit({"phase": "cards_pipeline", "files_equal": same})
+        if not all(same.values()):
+            raise SystemExit(f"cards_pipeline: the {n}-card run's outputs "
+                             f"differ from the 1x1 mesh's: {same}")
+    return total
+
+
+def cards_processes(args, n) -> dict:
+    """The CLI on the cli phase's dataset (CLI_DATA, CLI_FLAGS: k = 12, so
+    stage 1's dense count sum is an all_reduce on the cards, NCCL) in the
+    torchrun environment: n processes of one card each (the mesh off)
+    against one process on card 0; n/2 processes of two cards each (a 2x1
+    mesh in each) against one process on card 0 with sharded_align on (a
+    1x1 mesh).  The five outputs and the solid set must be equal; each
+    process must allocate only on the cards it owns, and the sum must
+    run on its card.  All four runs at once.  Returns the launches by
+    kernel and card of the multi-process runs."""
+    import tempfile
+    from tests.synth import make_dataset
+
+    names = (*OUTPUTS, "working_dir/solid_kmer_set.bin")
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_procs_") as d:
+        ds = make_dataset(seed=args.seed, **CLI_DATA)
+        paths = write_inputs(ds, d)
+        argv = ["-r", paths[0], "-c", paths[1], "-g", paths[2], *CLI_FLAGS]
+        runs = {"one_card": (1, [0], False),
+                "one_card_mesh": (1, [0], True),
+                "one_card_each": (n, range(n), False),
+                "two_cards_each": (n // 2, range(n), False)}
+        t0 = time.perf_counter()
+        started = {name: start_cli(d, name, argv, nprocs, cards, sharded)
+                   for name, (nprocs, cards, sharded) in runs.items()}
+        reports = {name: wait_cli(name, procs, CARDS_CLI_TIMEOUT)
+                   for name, (_, procs) in started.items()}
+        wall = time.perf_counter() - t0
+        out = {name: o for name, (o, _) in started.items()}
+        for name, reps in reports.items():
+            nprocs, cards, _ = runs[name]
+            emit({"phase": "cards_processes", "run": name,
+                  "processes": nprocs,
+                  "per_process": [{k: r[k] for k in (
+                      "rank", "world", "local_cards", "current_card", "mesh",
+                      "all_reduce", "allocated_cards", "wall_s")}
+                      for r in reps],
+                  "launches_by_card": [r["launches_by_card"] for r in reps]})
+            check_owned(f"cards_processes {name}", reps)
+            for r in reps:
+                own = r["local_cards"]
+                mesh = {"one_card": None,
+                        "one_card_mesh": {"shape": {"data": 1, "block": 1},
+                                          "cards": [0]},
+                        "one_card_each": None,
+                        "two_cards_each": {"shape": {"data": 2, "block": 1},
+                                           "cards": own}}[name]
+                if len(own) != len(cards) // nprocs or \
+                        r["current_card"] != own[0] or r["mesh"] != mesh:
+                    raise SystemExit(f"cards_processes {name}: rank "
+                                     f"{r['rank']} owns {own}, current "
+                                     f"{r['current_card']}, mesh "
+                                     f"{r['mesh']} ({mesh} wanted)")
+                if nprocs > 1 and not r["all_reduce"].get(f"cuda:{own[0]}"):
+                    raise SystemExit(f"cards_processes {name}: rank "
+                                     f"{r['rank']} summed no counts on its "
+                                     f"card: {r['all_reduce']}")
+                if name in ("one_card_each", "two_cards_each"):
+                    add_card_launches(total, r["launches_by_card"])
+        same = {"one_card_each": same_files(out["one_card_each"],
+                                            out["one_card"], names),
+                "two_cards_each": same_files(out["two_cards_each"],
+                                             out["one_card_mesh"], names)}
+        emit({"phase": "cards_processes", "wall_s": wall,
+              "files_equal": same})
+        if not all(all(v.values()) for v in same.values()):
+            raise SystemExit(f"cards_processes: files differ {same}")
+    return total
+
+
+def cards_main(args, t_script) -> int:
+    """``--cards N``: the multi-card phases on cards 0 .. N-1 (cards_mesh,
+    cards_pipeline, cards_processes, cards_launches), after the build and
+    the probe; raises when fewer than N cards are present.  Ends with
+    every card's nvidia-smi line and the contract line."""
+    import torch
+    n = args.cards
+    present = torch.cuda.device_count()
+    if n < 2 or present < n:
+        raise SystemExit(f"--cards {n}: needs at least 2 and at most the "
+                         f"{present} cards present")
+    cards = nvidia_smi()
+    built = build_all()
+    emit({"phase": "card", "nvidia_smi": cards, "cards": present,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nccl": ".".join(map(str, torch.cuda.nccl.version())), **built})
+    probe()
+    from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
+    ds = stage_dataset(args.seed, args.genome_mb)
+    by_phase = {"cards_mesh": cards_mesh(args, n, SeqDatabase(ds["reads"]),
+                                         SeqDatabase(ds["contigs"]))}
+    del ds
+    by_phase["cards_pipeline"] = cards_pipeline(args, n)
+    by_phase["cards_processes"] = cards_processes(args, n)
+    total = {}
+    for counts in by_phase.values():
+        add_card_launches(total, counts)
+    emit({"phase": "cards_launches", "by_phase": by_phase, "total": total})
+    emit({"phase": "total", "script_s": time.perf_counter() - t_script})
+    print("\n".join(cards), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": present}})
+    return 0
 
 
 def probe() -> dict:
@@ -2555,11 +3203,7 @@ def cli_run(args, auto) -> None:
         plain_s = time.perf_counter() - t0
         with open(os.path.join(out_cli, "metrics.json")) as f:
             metrics = json.load(f)
-        same = {}
-        for name in OUTPUTS:
-            with open(os.path.join(out_cli, name), "rb") as f1, \
-                    open(os.path.join(out_plain, name), "rb") as f2:
-                same[name] = f1.read() == f2.read()
+        same = same_files(out_cli, out_plain, OUTPUTS)
         emit({"phase": "cli", "genome_bp": len(ds["genome"]),
               "reads": len(ds["reads"]), "flags": CLI_FLAGS,
               "cli_switches": {var: f"auto ({val} here)"
@@ -2576,9 +3220,14 @@ def cli_run(args, auto) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--cli-worker"]:
+        return cli_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--genome-mb", type=float, default=1.0)
+    ap.add_argument("--cards", type=int, default=0,
+                    help="run only the multi-card phases, on cards 0 .. "
+                         "N-1 (at least 2)")
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -2594,7 +3243,9 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
         return 2
-    card = nvidia_smi()
+    if args.cards:
+        return cards_main(args, t_script)
+    card = nvidia_smi()[0]
     built = build_all()
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda, **built})
@@ -2606,9 +3257,10 @@ def main() -> int:
             3, mp_context=multiprocessing.get_context("spawn")) as pool:
         on_cpu, mesh_cpu, widths_cpu, reads, ctgs = slice_run(args, pool)
         a_launches = {"long_read": long_read(args, on_cpu)}
-        a_launches["mesh"], s_launches, seed_t, select_t = mesh(
+        a_launches["mesh"], s_launches, seed_t, select_t, mesh_text = mesh(
             args, built["regs"], reads, ctgs, mesh_cpu)
-        del reads, ctgs
+        g_launches = mesh_grid(reads, ctgs, mesh_text)
+        del reads, ctgs, mesh_text
         w_launches = widths(args, widths_cpu)
     launches, calls = pipeline(args)
     device_paths(calls)
@@ -2619,8 +3271,8 @@ def main() -> int:
     kernels = []
     # launches on each path that runs the kernel: the pipeline's aligner
     # stages and the widths phase (the static band); the long read, the
-    # mesh and the widths phase (the adaptive band); the mesh and the
-    # widths phase (the seeder)
+    # mesh, mesh_grid and widths phases (the adaptive band); the mesh,
+    # mesh_grid and widths phases (the seeder)
     for name, key, replaces in (
             ("banded_dp_static", "dp",
              "aligngraph2_tpu/ops/banded_pallas.py:54"),
@@ -2637,12 +3289,14 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None})
     # the adaptive band's: launches on the paths that run it, the mesh
-    # extender and the long read; times at the gate's mesh shape
+    # extender (mesh, mesh_grid, widths) and the long read; times at the
+    # gate's mesh shape
     for name, key, replaces in (
             ("banded_align", "dp", "aligngraph2_tpu/ops/banded_dp.py:106"),
             ("traceback", "tb", "aligngraph2_tpu/ops/banded_dp.py:244")):
         ms, plain_ms, bound, by = a_timing[key]
         by_phase = {ph: n[name] for ph, n in a_launches.items()}
+        by_phase["mesh_grid"] = g_launches[name]
         by_phase["widths"] = w_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2652,14 +3306,16 @@ def main() -> int:
             "max_abs_err": float(a_timing["err"][key]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None})
-    # the mesh seeder's: launches in the mesh phase; times at the seed
-    # gate's S=32 x 8192 and the select gate's B=32, N=96
+    # the mesh seeder's: launches in the mesh, mesh_grid and widths
+    # phases; times at the seed gate's S=32 x 8192 and the select gate's
+    # B=32, N=96
     for name, t, replaces in (
             ("seed_block", seed_t,
              "aligngraph2_tpu/parallel/sharded.py:126"),
             ("select_candidates", select_t,
              "aligngraph2_tpu/parallel/sharded.py:171")):
-        by_phase = {"mesh": s_launches[name], "widths": w_launches[name]}
+        by_phase = {"mesh": s_launches[name],
+                    "mesh_grid": g_launches[name], "widths": w_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "aligngraph2_tpu_torch/csrc/seed_mesh.cu",

@@ -1,9 +1,11 @@
 """The port's static-band DP and traceback, plain torch versions
 (aligngraph2_tpu_torch/ops/banded_static.py), against the JAX package's
 Pallas kernel in interpret mode and its traceback_t, on the same numpy
-inputs, at the shapes of tests/test_banded_pallas.py.  Every comparison
-is exact.  The CUDA kernels behind the same wrappers are held against
-these plain versions on the card by chip_smoke.py."""
+inputs, at the shapes of tests/test_banded_pallas.py with 16-row chunks;
+the widths past 1024 against a row-by-row numpy model of the band, which
+is itself held to the Pallas kernel.  Every comparison is exact.  The
+CUDA kernels behind the same wrappers are held against these plain
+versions on the card by chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -18,7 +20,10 @@ from tests.synth import random_genome, mutate
 
 torch.set_num_threads(1)
 
-NQ, W, K, TB = 256, 128, 32, 8
+# K = 16 rows a Pallas chunk: the interpret-mode kernel unrolls its rows,
+# so from a cold compile cache the planted fixture's two compiles take
+# minutes at K = 32 and seconds at 16
+NQ, W, K, TB = 256, 128, 16, 8
 
 
 def _planted(seed, B=8):
@@ -319,16 +324,91 @@ def test_traceback_edges_equal_traceback_t(name):
         assert (got[1].numpy() == max_steps).all()
 
 
-@pytest.mark.parametrize("Wd, x_drop", [(2048, 0), (4096, 250)])
-def test_wide_band_equals_pallas(Wd, x_drop):
-    """The widths past one warp's registers (the kernel's multi-warp
-    lane): the plain DP and traceback against the Pallas kernel in
-    interpret mode and traceback_t, at the shapes of
-    tests/test_banded_pallas.py (B = 8, K = 32, TB = 8, NQ = 64), one
-    x_drop each (a Pallas compile takes minutes here): score and best
-    cell exact, every direction at x_drop 0, the rows up to best_i at
-    250, and the moves, count and start of every walk."""
-    nq, B = 64, 8
+def _model_dp(q, t, qlen, Wd, k, x_drop, match=2, mismatch=-4, gap=-3):
+    """Row-by-row numpy model of the static band: the Pallas kernel's
+    recurrence and best cell, with x_drop per lane as the port decides
+    it.  Row i of lane b reads q[b, i-1], its cell j reads t[b, i-1+j];
+    M = max(diag + s, up + gap) with up past column W-1 absent, the cell
+    STOP when M <= 0 (then M = 0), else DIAG, which wins ties, or UP;
+    the left chain H[j] = max over c <= j of M[c] + gap (j - c), written
+    in closed form, LEFT where it raised the cell strictly.  Per column
+    the first row reaching its maximum; the best cell is the earliest
+    such row of the largest value, then the smallest column, (0, 0) at
+    score 0.  Every k rows before the last a lane lives iff row i+1 <=
+    qlen and (best = 0 or max_j H >= best - x_drop); a dead lane keeps
+    its values and writes STOP rows.  Returns (score, best_i, best_j,
+    rows, dirs (B, NQ, W))."""
+    B, nq = q.shape
+    cols = np.arange(Wd)
+    H = np.zeros((B, Wd), np.int64)
+    bcol = np.zeros((B, Wd), np.int64)
+    brow = np.zeros((B, Wd), np.int64)
+    dirs = np.zeros((B, nq, Wd), np.uint8)
+    alive = np.ones(B, bool)
+    rows = np.full(B, nq)
+    for i in range(1, nq + 1):
+        live = alive[:, None]
+        s = np.where(t[:, i - 1 + cols] == q[:, i - 1, None], match,
+                     mismatch)
+        diag = H + s
+        up = np.concatenate([H[:, 1:] + gap, np.full((B, 1), -(1 << 40))],
+                            axis=1)
+        M = np.maximum(diag, up)
+        code = np.where(M > 0, np.where(diag >= up, DIAG, UP), STOP)
+        M = np.maximum(M, 0)
+        Hn = np.maximum.accumulate(M - gap * cols, axis=1) + gap * cols
+        code = np.where(Hn > M, LEFT, code)
+        dirs[:, i - 1] = np.where(live, code, STOP)
+        upd = live & (Hn > bcol)
+        bcol = np.where(upd, Hn, bcol)
+        brow = np.where(upd, i, brow)
+        H = np.where(live, Hn, H)
+        if x_drop > 0 and i % k == 0 and i < nq:
+            best = bcol.max(axis=1)
+            ok = (i + 1 <= qlen) & ((best == 0)
+                                    | (H.max(axis=1) >= best - x_drop))
+            died = alive & ~ok
+            rows[died] = i
+            alive &= ~died
+    score = bcol.max(axis=1)
+    top = bcol == score[:, None]
+    best_i = np.where(top, brow, 1 << 30).min(axis=1)
+    best_j = np.where(top & (brow == best_i[:, None]), cols, Wd).min(axis=1)
+    best_i = np.where(score > 0, best_i, 0)
+    best_j = np.where(score > 0, best_j, 0)
+    return score, best_i, best_j, rows, dirs
+
+
+def _model_walk(dirs, best_i, best_j, max_steps):
+    """The traceback over model directions, one lane at a time: from the
+    best cell, DIAG keeps j, UP moves to j+1, LEFT to j-1 on the same
+    row (a column outside the band reads its nearest edge column); it
+    stops at STOP, at row 0 or after max_steps moves.  Returns (moves
+    END->START (B, max_steps), count, start row, start column)."""
+    B, _, Wd = dirs.shape
+    moves = np.zeros((B, max_steps), np.uint8)
+    n, si, sj = (np.zeros(B, np.int64) for _ in range(3))
+    for b in range(B):
+        i, j = int(best_i[b]), int(best_j[b])
+        for step in range(max_steps):
+            cur = dirs[b, i - 1, min(max(j, 0), Wd - 1)] if i > 0 else STOP
+            if cur == STOP:
+                break
+            moves[b, step] = cur
+            n[b] += 1
+            if cur == LEFT:
+                j -= 1
+            else:
+                i -= 1
+                j += cur == UP
+        si[b], sj[b] = i, j
+    return moves, n, si, sj
+
+
+def _wide_lanes(Wd, nq=64, B=8):
+    """B reads of up to nq bases planted in random genomes, their windows
+    in the standard frame at the seed diagonal moved by up to W/4: (q, t,
+    qlen), qlen from nq/2 to the read's length."""
     rng = np.random.default_rng(Wd)
     q = np.full((B, nq), jp.Q_SENTINEL, np.uint8)
     qlen = np.zeros(B, np.int32)
@@ -344,6 +424,77 @@ def test_wide_band_equals_pallas(Wd, x_drop):
         ts_.append(g)
         diags.append(start + int(rng.integers(-Wd // 4, Wd // 4)))
     t, _ = jp.standard_frame_windows(ts_, diags, nq, Wd)
+    return q, t, qlen
+
+
+@pytest.mark.parametrize("x_drop", [0, 250])
+def test_model_equals_pallas(x_drop):
+    """The numpy model against the Pallas kernel in interpret mode and
+    traceback_t at W = 256 (K = 16, NQ = 64: the interpret-mode compile
+    takes seconds, not minutes): score and best cell exact, every
+    direction at x_drop 0, the rows up to best_i at 250 (a Pallas lane
+    computes on while its tile lives), and every walk."""
+    Wd, nq = 256, 64
+    q, t, qlen = _wide_lanes(Wd, nq)
+    want = jp.banded_align_pallas(q, t, qlen, W=Wd, K=K, TB=TB,
+                                  x_drop=x_drop, interpret=True)
+    score, best_i, best_j, rows, dirs = _model_dp(q, t, qlen, Wd, K, x_drop)
+    for got, name in ((score, "score"), (best_i, "best_i"),
+                      (best_j, "best_j")):
+        np.testing.assert_array_equal(got, np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert int(score.min()) > 30
+    dj = _jax_dirs(want)
+    for b in range(len(q)):
+        last = nq if x_drop == 0 else int(best_i[b])
+        np.testing.assert_array_equal(dirs[b, :last], dj[b, :last])
+    ms = 2 * nq + Wd
+    tw = jp.traceback_t(want.words, want.best_i, want.best_j, max_steps=ms,
+                        W=Wd)
+    for a, b, name in zip(_model_walk(dirs, best_i, best_j, ms), tw,
+                          ("moves", "n", "si", "sj")):
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
+
+
+@pytest.mark.parametrize("Wd, x_drop", [(2048, 0), (2048, 250),
+                                        (4096, 0), (4096, 250)])
+def test_wide_band_equals_model(Wd, x_drop):
+    """The widths past one warp's registers (the kernel's multi-warp
+    lane): the plain DP and traceback against the numpy model, which
+    test_model_equals_pallas holds to the Pallas kernel: score, best
+    cell, rows run, every direction and every walk exact."""
+    nq = 64
+    q, t, qlen = _wide_lanes(Wd, nq)
+    score, best_i, best_j, rows, dirs = _model_dp(q, t, qlen, Wd, K, x_drop)
+    got = ts.banded_dp_static(torch.from_numpy(q), torch.from_numpy(t),
+                              torch.from_numpy(qlen), W=Wd, K=K,
+                              x_drop=x_drop)
+    for want, name in ((score, "score"), (best_i, "best_i"),
+                       (best_j, "best_j"), (rows, "rows")):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), want,
+                                      err_msg=name)
+    assert int(score.min()) > 40
+    if x_drop:
+        assert (rows < nq).any()    # some lane stopped past its qlen
+    np.testing.assert_array_equal(ts.unpack_words(got.words).numpy(), dirs)
+    ms = 2 * nq + Wd
+    tt = ts.traceback_static(got.words, got.best_i, got.best_j,
+                             max_steps=ms)
+    for a, b, name in zip(tt, _model_walk(dirs, best_i, best_j, ms),
+                          ("moves", "n", "si", "sj")):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("Wd, x_drop", [(4096, 250)])
+def test_wide_band_equals_pallas(Wd, x_drop):
+    """The widest band against the Pallas kernel itself in interpret mode
+    and traceback_t (B = 8, NQ = 64): score and best cell exact, the rows
+    up to best_i, and the moves, count and start of every walk.  Slow: the
+    interpret-mode compile at W = 4096 takes many minutes from a cold
+    cache; test_wide_band_equals_model covers the width in tier 1."""
+    nq = 64
+    q, t, qlen = _wide_lanes(Wd, nq)
     want = jp.banded_align_pallas(q, t, qlen, W=Wd, K=K, TB=TB,
                                   x_drop=x_drop, interpret=True)
     got = ts.banded_dp_static(torch.from_numpy(q), torch.from_numpy(t),
@@ -356,9 +507,9 @@ def test_wide_band_equals_pallas(Wd, x_drop):
     assert int(got.score.min()) > 40
     dj = _jax_dirs(want)
     dt = ts.unpack_words(got.words).numpy()
-    for b in range(B):
-        rows = nq if x_drop == 0 else int(got.best_i[b])
-        np.testing.assert_array_equal(dt[b, :rows], dj[b, :rows])
+    for b in range(len(q)):
+        last = nq if x_drop == 0 else int(got.best_i[b])
+        np.testing.assert_array_equal(dt[b, :last], dj[b, :last])
     ms = 2 * nq + Wd
     tw = jp.traceback_t(want.words, want.best_i, want.best_j,
                         max_steps=ms, W=Wd)

@@ -4,8 +4,8 @@ distributed.py) and multi-process pipeline runs, on the CPU over gloo:
   * the single-process identities of tests/test_distributed.py;
   * two processes: every collective helper against what one process
     computes alone (tests/_torch_dist_worker.py ``helpers``);
-  * two processes running the pipeline into one directory, with the
-    mesh path off and on: the five outputs and the solid set are
+  * two and four processes running the pipeline into one directory,
+    with the mesh path off and on: the five outputs and the solid set are
     byte-identical to a one-process run (as
     tests/test_distributed_2proc.py holds the JAX package), on the legacy
     6 kb dataset with tests/_torch_pipe.py's small configuration (k =
@@ -142,12 +142,19 @@ def one_process(tmp_path_factory):
     shutil.rmtree(root, ignore_errors=True)
 
 
-@pytest.mark.parametrize("sharded", ["0", "1"])
-def test_two_process_pipeline_matches_single(one_process, sharded):
-    out = one_process / f"two_{sharded}"
+# the first two cases keep the ids of the two-process runs
+@pytest.mark.parametrize("nprocs, sharded", [
+    pytest.param(2, "0", id="0"), pytest.param(2, "1", id="1"),
+    pytest.param(4, "0", id="4-0"), pytest.param(4, "1", id="4-1")])
+def test_two_process_pipeline_matches_single(one_process, nprocs, sharded):
+    """``nprocs`` processes into one directory write what one process
+    writes, byte for byte, with the mesh path off and on.  The dataset has
+    two contigs, so with four processes some own no group and the read
+    slices are uneven (VERDICT r5 weak #6 for the JAX package)."""
+    out = one_process / f"run_{nprocs}_{sharded}"
     try:
-        _run_workers(2, "pipeline", str(one_process / "data"), str(out),
-                     sharded)
+        _run_workers(nprocs, "pipeline", str(one_process / "data"),
+                     str(out), sharded)
         for name in OUTPUTS:
             assert (out / name).read_bytes() == \
                 (one_process / "one" / name).read_bytes(), name

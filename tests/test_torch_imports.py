@@ -41,6 +41,7 @@ LongReadAligner(SeqDatabase([("g", g)]), AlignerConfig(band_width=64),
                 mesh=mesh).align_reads(SeqDatabase([("r", g[100:700])]))
 dd.init_distributed()
 assert dd.gather_host_bytes(b"x") == [b"x"]
+assert dd.local_cards() == list(range(torch.cuda.device_count()))
 assert devprobe.resolve_backend("ALIGNGRAPH2_TPU_TORCH_MERGE", "cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"

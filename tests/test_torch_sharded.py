@@ -9,8 +9,8 @@ virtual CPU devices for JAX and lists of CPU devices for the port:
     at several diagonals, a small k, counts from a small range), with the
     prune off and on;
   * ``LongReadAligner(mesh=...)``: .ref text equal to the JAX mesh path's
-    (``make_mesh(8, block_parallel=2)``) for port meshes 1x1, 4x2 and
-    2x4, and the quality and reverse-strand cases of
+    (``make_mesh(8, block_parallel=2)``) for port meshes 1x1, 4x2, 2x4,
+    4x1 and 1x4, and the quality and reverse-strand cases of
     tests/test_sharded_aligner.py;
   * the mesh's shape rules, and a failure in the mesh path raises (no
     fallback to the single-device path)."""
@@ -179,7 +179,8 @@ def _mesh_align(dataset, data, block, db=None, reads=None):
                            ).align_reads(reads or SeqDatabase(dataset["reads"]))
 
 
-@pytest.mark.parametrize("data, block", [(1, 1), (4, 2), (2, 4)])
+@pytest.mark.parametrize("data, block", [(1, 1), (4, 2), (2, 4), (4, 1),
+                                         (1, 4)])
 def test_mesh_path_equals_jax(dataset, jax_mesh_text, data, block):
     assert _mesh_align(dataset, data, block).to_ref_text() == jax_mesh_text
 
