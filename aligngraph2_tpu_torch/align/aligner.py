@@ -60,7 +60,7 @@ import torch
 
 from ..config import AlignerConfig
 from ..io.seqdb import SeqDatabase, decode_seq, revcomp_codes
-from ..ops.banded_dp import (banded_align, banded_align_ref,
+from ..ops.banded_dp import (banded_align, banded_align_ref, decode_strings,
                              moves_to_strings, traceback, traceback_ref)
 from ..ops.banded_static import (Q_SENTINEL, banded_dp_static,
                                  banded_dp_static_ref,
@@ -642,24 +642,30 @@ class LongReadAligner:
                 c0[li] = c0v
         count("extend.lanes", len(lchunk))
         with span("align.dispatch"):
-            e_score, e_moves, e_si, e_tb = extender(q, qlen, t, tl, c0)
+            ext = extender(q, qlen, t, tl, c0)
+        count("extend.card_strings",
+              np.count_nonzero(ext.card[:len(lchunk)]))
         with span("align.finish"):
             # the strings of every lane, then the records in lane order:
-            # only _emit reads out and best_per_read
+            # only _emit reads out and best_per_read.  A card made its
+            # lanes' strings; a CPU lane's come from its moves here.
             with span("align.finish.strings"):
                 found = []
                 for li, (r, kk, tid, bstart, ws, c0v) in enumerate(lchunk):
-                    score = int(e_score[li])
+                    score = int(ext.score[li])
                     if score <= 0:
                         continue
                     forward = bool(c_strand[r, kk])
                     codes = (q_fwd[r] if forward else q_rev[r])[:lens[r]]
-                    win = self.db.get_codes(tid)[bstart + ws:
-                                                 bstart + ws + NT]
-                    qb = int(e_si[li])
-                    tb = int(e_tb[li])
-                    qstr, tstr, qe, te = moves_to_strings(e_moves[li], codes,
-                                                          qb, tb, win)
+                    qb = int(ext.si[li])
+                    tb = int(ext.tb[li])
+                    if ext.card[li]:
+                        qstr, tstr, qe, te = decode_strings(ext.strings[li])
+                    else:
+                        win = self.db.get_codes(tid)[bstart + ws:
+                                                     bstart + ws + NT]
+                        qstr, tstr, qe, te = moves_to_strings(
+                            ext.moves[li], codes, qb, tb, win)
                     cand = Candidate(tid=tid, forward=forward,
                                      diag=bstart + int(c_diag[r, kk]),
                                      hits=int(c_cnt[r, kk]),

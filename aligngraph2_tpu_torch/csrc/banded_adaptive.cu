@@ -1,12 +1,14 @@
-// Adaptive-band Smith-Waterman DP and its traceback, for Hopper (sm_90a).
+// Adaptive-band Smith-Waterman DP, its traceback and the traceback's gapped
+// strings, for Hopper (sm_90a).
 //
 // Built by ops/_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through the plain C functions at the end of this file.  Each
 // launches on the stream it is given, allocates nothing and returns
 // cudaGetLastError(); the wrappers in ops/banded_dp.py allocate the outputs
-// and raise on a nonzero code.  ops/banded_dp.py also holds the plain torch
-// versions (banded_align_ref, traceback_ref), which define the semantics.
+// and raise on a nonzero code.  ops/banded_dp.py also holds the plain
+// versions (banded_align_ref, traceback_ref, and moves_to_strings on the
+// host), which define the semantics.
 //
 // dp_adaptive_kernel replaces banded_align of aligngraph2_tpu/ops/banded_dp.py
 // (_row_kernel under vmap/scan at x_drop == 0, _banded_align_xdrop's
@@ -124,6 +126,35 @@
 //     tile fetched NB - 2 tiles earlier.
 //   * Moves go to a 256-byte shared ring and leave 128 at a time as 32
 //     words, one a thread.
+//
+// tb_strings_kernel replaces no TPU kernel: the JAX package turns each
+// lane's moves into its gapped strings on the host, one numpy call a lane
+// (moves_to_strings of ops/banded_dp.py).  It does that on the card, on
+// the stream right after tb_adaptive_kernel, so the mesh path's extender
+// copies back strings ready to decode.  Per lane, in START->END order,
+// move k = 0 .. n-1 is moves[n - 1 - k]:
+//   * the query advances unless the move is LEFT, the target unless UP;
+//   * qi = si + the query's advances before k, ti = tb + the target's;
+//   * byte k of the query's string is "ACGT-"[q[min(qi, qlen - 1)]] where
+//     the query advances, '-' where it does not, the target's alike from
+//     t, ti and tlen; an index below 0 counts once from the end, as
+//     numpy's does, and where numpy raises (an index still below 0, or a
+//     code past 4) the lane is flagged and the host raises as
+//     moves_to_strings would;
+//   * qe = si + the query's advances, te = tb + the target's.
+// An output row: a header of kStrHead bytes, int32 (score, si, tb, qe, te,
+// n or -1 where flagged, 0, 0), then the query's string and the target's,
+// each in a field of `stride` bytes, zero past n.
+// Bound: latency.  A lane's walk is about 10^4 moves and a call a few
+// dozen lanes, so its bytes (a move read, two codes read and two string
+// bytes written a move) take the card microseconds; the launch and the
+// chain of a lane's tiles are the time.  Design: one block of kStrThreads
+// a lane; a tile of kStrTile moves, kStrPer consecutive moves a thread;
+// the thread's two advance counts packed in one int (query in the low 16
+// bits), one block-wide exclusive scan a tile (warp shuffles, the warps'
+// totals through shared memory), the codes read through the read-only
+// cache (a tile's reads lie within a few KB of q and t), and one 8-byte
+// store a thread a string; a tile past n only stores zeros.
 
 #include <cstddef>
 #include <cstdint>
@@ -964,6 +995,121 @@ tb_adaptive_kernel(const uint8_t* __restrict__ dirs,
   }
 }
 
+constexpr int kStrThreads = 256;   // a lane's block
+constexpr int kStrPer = 8;         // consecutive moves a thread a tile
+constexpr int kStrTile = kStrThreads * kStrPer;
+constexpr int kStrHead = 32;       // header bytes of an output row
+constexpr unsigned kAcgt = 0x54474341u;   // "ACGT", byte c at bits 8c
+
+// numpy's index of a[min(x, len - 1)] in an array of len: a negative index
+// counts once from the end; -1 where numpy raises
+__device__ __forceinline__ int np_index(int x, int len) {
+  x = min(x, len - 1);
+  if (x < 0) x += len;
+  return x;
+}
+
+__global__ void __launch_bounds__(kStrThreads)
+tb_strings_kernel(const uint8_t* __restrict__ moves, int mstride,
+                  const int32_t* __restrict__ n_moves,
+                  const int32_t* __restrict__ si,
+                  const int32_t* __restrict__ tb,
+                  const int32_t* __restrict__ score,
+                  const uint8_t* __restrict__ q, int NQ,
+                  const int32_t* __restrict__ qlen,
+                  const uint8_t* __restrict__ t, int NT,
+                  const int32_t* __restrict__ tlen, int stride,
+                  uint8_t* __restrict__ out) {
+  __shared__ int s_warp[kStrThreads / 32];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n = n_moves[b];
+  const int q0 = si[b];
+  const int t0 = tb[b];
+  const int ql = qlen[b];
+  const int tl = tlen[b];
+  const uint8_t* mv = moves + (size_t)b * mstride;
+  const uint8_t* qb = q + (size_t)b * NQ;
+  const uint8_t* tt = t + (size_t)b * NT;
+  uint8_t* row = out + (size_t)b * (kStrHead + 2 * (size_t)stride);
+  uint8_t* qs = row + kStrHead;
+  uint8_t* ts = qs + stride;
+  int qa = 0;   // the query's advances in the earlier tiles
+  int ta = 0;   // the target's
+  bool bad = false;
+  for (int k0 = 0; k0 < stride; k0 += kStrTile) {
+    const int k = k0 + tid * kStrPer;
+    unsigned qw[2] = {0u, 0u};
+    unsigned tw[2] = {0u, 0u};
+    if (k0 < n) {   // the same for every thread of the block
+      int m[kStrPer];
+      int own = 0;
+#pragma unroll
+      for (int e = 0; e < kStrPer; ++e) {
+        m[e] = k + e < n ? (int)__ldg(mv + (n - 1 - k - e)) : -1;
+        own += m[e] < 0 ? 0 : (m[e] != kLeft) + ((m[e] != kUp) << 16);
+      }
+      int inc = own;   // the warp's inclusive scan
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(kFull, inc, d);
+        if (lane >= d) inc += v;
+      }
+      if (lane == 31) s_warp[warp] = inc;
+      __syncthreads();
+      if (warp == 0) {   // the warps' totals, scanned
+        int w = lane < kStrThreads / 32 ? s_warp[lane] : 0;
+#pragma unroll
+        for (int d = 1; d < kStrThreads / 32; d <<= 1) {
+          const int v = __shfl_up_sync(kFull, w, d);
+          if (lane >= d) w += v;
+        }
+        if (lane < kStrThreads / 32) s_warp[lane] = w;
+      }
+      __syncthreads();
+      const int ex = (warp ? s_warp[warp - 1] : 0) + inc - own;
+      const int total = s_warp[kStrThreads / 32 - 1];
+      int qi = q0 + qa + (ex & 0xffff);
+      int ti = t0 + ta + (ex >> 16);
+      qa += total & 0xffff;
+      ta += total >> 16;
+#pragma unroll
+      for (int e = 0; e < kStrPer; ++e) {
+        if (m[e] < 0) continue;
+        const int qx = np_index(qi, ql);
+        const int tx = np_index(ti, tl);
+        const bool qadv = m[e] != kLeft;
+        const bool tadv = m[e] != kUp;
+        bad |= qx < 0 || qx >= NQ || tx < 0 || tx >= NT;
+        int qc = 4;
+        int tc = 4;
+        if (qadv && qx >= 0 && qx < NQ) qc = __ldg(qb + qx);
+        if (tadv && tx >= 0 && tx < NT) tc = __ldg(tt + tx);
+        bad |= qc > 4 || tc > 4;
+        const unsigned qch = qc < 4 ? (kAcgt >> (8 * qc)) & 0xffu : '-';
+        const unsigned tch = tc < 4 ? (kAcgt >> (8 * tc)) & 0xffu : '-';
+        qw[e >> 2] |= qch << (8 * (e & 3));
+        tw[e >> 2] |= tch << (8 * (e & 3));
+        qi += qadv;
+        ti += tadv;
+      }
+      __syncthreads();   // s_warp is the next tile's
+    }
+    if (k < stride) {
+      *reinterpret_cast<uint2*>(qs + k) = make_uint2(qw[0], qw[1]);
+      *reinterpret_cast<uint2*>(ts + k) = make_uint2(tw[0], tw[1]);
+    }
+  }
+  bad = __syncthreads_or(bad);
+  if (tid < kStrHead / 4) {
+    const int h[kStrHead / 4] = {score[b], q0, t0, q0 + qa, t0 + ta,
+                                 bad ? -1 : n, 0, 0};
+    reinterpret_cast<int32_t*>(row)[tid] = h[tid];
+  }
+}
+
 template <int W>
 void launch_dp(bool packed, const uint8_t* q, const uint8_t* t,
                const int32_t* qlen, const int32_t* tlen, const int32_t* c0,
@@ -1122,6 +1268,29 @@ int agc_tb_adaptive(int device, const void* dirs, const void* centers,
       return (int)cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+int agc_tb_strings(int device, const void* moves, int mstride,
+                   const void* n, const void* si, const void* tb,
+                   const void* score, const void* q, int NQ,
+                   const void* qlen, const void* t, int NT,
+                   const void* tlen, int B, int stride, void* out,
+                   void* stream) {
+  const CallerDevice caller;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (B <= 0) return 0;
+  if (NQ <= 0 || NT <= 0 || stride <= 0 || (stride & 15) ||
+      mstride < 0)
+    return (int)cudaErrorInvalidValue;
+  tb_strings_kernel<<<B, kStrThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(moves), mstride,
+      static_cast<const int32_t*>(n), static_cast<const int32_t*>(si),
+      static_cast<const int32_t*>(tb), static_cast<const int32_t*>(score),
+      static_cast<const uint8_t*>(q), NQ, static_cast<const int32_t*>(qlen),
+      static_cast<const uint8_t*>(t), NT, static_cast<const int32_t*>(tlen),
+      stride, static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }
 

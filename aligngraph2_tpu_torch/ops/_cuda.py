@@ -69,7 +69,9 @@ SEED_SIGNATURES = {
 
 ADAPTIVE_SIGNATURES = {
     "agc_dp_adaptive": [_ci] + [_vp] * 5 + [_ci] * 10 + [_vp] * 8,
-    "agc_tb_adaptive": [_ci] + [_vp] * 4 + [_ci] * 5 + [_vp] * 5}
+    "agc_tb_adaptive": [_ci] + [_vp] * 4 + [_ci] * 5 + [_vp] * 5,
+    "agc_tb_strings": [_ci, _vp, _ci] + [_vp] * 5 + [_ci, _vp, _vp, _ci, _vp,
+                                                      _ci, _ci, _vp, _vp]}
 
 
 def get_lib() -> ctypes.CDLL:

@@ -26,6 +26,10 @@ sentinel; a traceback index wraps when negative, then clamps).
     :func:`banded_align_ref` on CPU tensors (numpy inputs go to the CPU).
   * :func:`traceback` runs ``tb_adaptive_kernel`` on CUDA tensors and
     :func:`traceback_ref` on CPU tensors.
+  * :func:`gapped_strings` runs ``tb_strings_kernel``, which makes the
+    walks' gapped strings on the card, where :func:`moves_to_strings`
+    makes them on the host (the mesh path's extender takes it on a card,
+    ``parallel/sharded.py``); :func:`decode_strings` reads a lane's row.
 
 A wrapper given a CUDA tensor launches its kernel or raises; only a CPU
 tensor takes the plain version.  Each wrapper counts its launches in
@@ -419,6 +423,84 @@ def traceback(dirs, centers, best_i, best_j, *, max_steps):
 
 
 traceback.launches = 0
+
+
+def start_column(centers, si, sj, W):
+    """The window column where each walk starts, from its start row and
+    band column (:func:`traceback`'s si, sj): si + centers[si] - W/2 +
+    sj, on the tensors' device."""
+    cen = centers.gather(
+        1, _jax_index(si, centers.shape[1])[:, None]).squeeze(1)
+    return si + cen - W // 2 + sj
+
+# a row of gapped_strings: a header of STRINGS_HEAD bytes, int32 words
+# (score, start row si, start window column tb, qe, te, move count n, 0, 0),
+# then the query's gapped ASCII string and the target's, each in a field of
+# strings_stride(max_steps) bytes, zero past n.  n is -1 where
+# moves_to_strings raises (an index out of range).
+STRINGS_HEAD = 32
+
+
+def strings_stride(max_steps: int) -> int:
+    """Bytes of each string's field in a gapped_strings row."""
+    return -(-max_steps // 16) * 16
+
+
+def gapped_strings(moves, n, si, tb, score, q, qlen, t, tlen):
+    """Launch ``tb_strings_kernel`` on CUDA tensors: each lane's gapped
+    strings of :func:`traceback`'s walk, as :func:`moves_to_strings` makes
+    them on the host, in rows of ``STRINGS_HEAD + 2 *
+    strings_stride(max_steps)`` bytes (the layout above).  ``moves`` (B,
+    max_steps) uint8 and ``n``, ``si`` are :func:`traceback`'s (moves may
+    be its view of padded rows), ``tb`` the start window column, ``score``
+    the lane's score (copied into the header), q (B, NQ) and t (B, NT)
+    uint8 and qlen, tlen int32 the DP's inputs.  No sync.  Raises on any
+    input the kernel does not take; the CPU's route is
+    :func:`moves_to_strings`."""
+    from . import _cuda
+    B, max_steps = moves.shape
+    NQ, NT = q.shape[1], t.shape[1]
+    dev = moves.device
+    if not moves.is_cuda or moves.dtype != torch.uint8 or moves.stride(1) != 1:
+        raise ValueError("moves must be a uint8 CUDA tensor with rows of "
+                         "contiguous bytes")
+    for x, name in ((n, "n"), (si, "si"), (tb, "tb"), (score, "score"),
+                    (qlen, "qlen"), (tlen, "tlen")):
+        _cuda.need(x, name, torch.int32, (B,), dev)
+    _cuda.need(q, "q", torch.uint8, (B, NQ), dev)
+    _cuda.need(t, "t", torch.uint8, (B, NT), dev)
+    if max_steps <= 0 or NQ < 1 or NT < 1:
+        raise ValueError(f"max_steps={max_steps}, NQ={NQ}, NT={NT}: need "
+                         "all positive")
+    lib = _cuda.get_adaptive_lib()
+    stride = strings_stride(max_steps)
+    out = torch.empty((B, STRINGS_HEAD + 2 * stride), dtype=torch.uint8,
+                      device=dev)
+    index, stream = _cuda.launch_target(dev)
+    code = lib.agc_tb_strings(
+        index, moves.data_ptr(), moves.stride(0), n.data_ptr(),
+        si.data_ptr(), tb.data_ptr(), score.data_ptr(), q.data_ptr(), NQ,
+        qlen.data_ptr(), t.data_ptr(), NT, tlen.data_ptr(), B, stride,
+        out.data_ptr(), stream)
+    _cuda.check(lib, code, "tb_strings_kernel launch")
+    gapped_strings.launches += 1
+    return out
+
+
+gapped_strings.launches = 0
+
+
+def decode_strings(row: np.ndarray):
+    """(qstr, tstr, qe, te) of one row of :func:`gapped_strings`, as
+    :func:`moves_to_strings` returns them; raises IndexError where it
+    raises."""
+    _, _, _, qe, te, n = row[:24].view(np.int32).tolist()
+    if n < 0:
+        raise IndexError("a gapped string's index is out of range")
+    stride = (len(row) - STRINGS_HEAD) // 2
+    tq = STRINGS_HEAD + stride
+    return (row[STRINGS_HEAD:STRINGS_HEAD + n].tobytes().decode("ascii"),
+            row[tq:tq + n].tobytes().decode("ascii"), qe, te)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,9 @@ seeding and the static band):
   4. EXTEND: the adaptive banded DP and its traceback
      (``ops/banded_dp.py``: CUDA kernels on a card, the plain torch
      versions on the CPU) on the live lanes, split over every device of
-     the mesh (``_extend_body``).
+     the mesh (``_extend_body``); on a card a third kernel makes each
+     lane's gapped strings (``gapped_strings``), on the CPU the host
+     makes them from the moves.
 
 The JAX functions are XLA, not Pallas.  Their plain versions here
 (``_seed_reads_ref``: ``kmer_codes_batch`` and
@@ -61,8 +63,8 @@ import numpy as np
 import torch
 
 from ..io.seqdb import SeqDatabase
-from ..ops.banded_dp import (_jax_index, _loop, banded_align, dp_adaptive,
-                              traceback)
+from ..ops.banded_dp import (STRINGS_HEAD, _loop, banded_align, dp_adaptive,
+                              gapped_strings, start_column, traceback)
 from ..ops.kmer import kmer_codes_batch, kmer_codes_np
 from ..utils.timing import count, span, tracing
 
@@ -604,26 +606,39 @@ def make_sharded_seeder(mesh, *, k, BL, bin_w, min_hits, occ=4,
 # EXTEND step
 
 
+class Extended(NamedTuple):
+    """The extender's results, host arrays in lane order."""
+    score: np.ndarray     # (LB,) int32, 0 on padding lanes
+    si: np.ndarray        # (LB,) int32 start row
+    tb: np.ndarray        # (LB,) int32 start window column
+    card: np.ndarray      # (LB,) bool: the lane's strings are in strings
+    strings: np.ndarray | None   # (LB, row) uint8: gapped_strings rows of
+                                 # the lanes of card shards (None: none)
+    moves: np.ndarray | None     # (LB, max_steps) uint8 END->START moves
+                                 # of the lanes of CPU shards (None: none)
+
+
 def _extend_body(q, qlen, t, tlen, c0, *, W, match, mismatch, gap, x_drop,
                  max_steps):
     """Adaptive banded DP and traceback of one lane shard, on its device.
-    Returns (score, moves, start row si, start window column tb, rows):
-    rows is the rows each lane ran on a card (``dp_adaptive``'s), None on
-    the CPU's plain route."""
+    Returns (what to copy back, rows): on a card the lanes'
+    ``gapped_strings`` rows (score, si and tb in their headers) and the
+    rows each lane ran (``dp_adaptive``'s); on the CPU's plain route
+    (score, moves, start row si, start window column tb) and None."""
     dp_kw = dict(W=W, match=match, mismatch=mismatch, gap=gap,
                  x_drop=x_drop)
     if q.is_cuda:
         res, rows = dp_adaptive(q, qlen, t, tlen, c0, **dp_kw)
     else:
         res, rows = banded_align(q, qlen, t, tlen, c0, **dp_kw), None
-    moves, _, si, sj = traceback(res.dirs, res.centers, res.best_i,
+    moves, n, si, sj = traceback(res.dirs, res.centers, res.best_i,
                                  res.best_j, max_steps=max_steps)
-    # start column -> window coordinate (needs the per-row band centers,
-    # which never leave the device): tb = si + centers[si] - W/2 + sj
-    cen_si = res.centers.gather(
-        1, _jax_index(si, res.centers.shape[1])[:, None]).squeeze(1)
-    tb = si + cen_si - W // 2 + sj
-    return res.score, moves, si, tb, rows
+    # the per-row band centers never leave the device
+    tb = start_column(res.centers, si, sj, W)
+    if q.is_cuda:
+        return gapped_strings(moves, n, si, tb, res.score, q, qlen, t,
+                              tlen), rows
+    return (res.score, moves, si, tb), None
 
 
 def make_sharded_extender(mesh, *, W, match=2, mismatch=-4, gap=-3,
@@ -631,16 +646,19 @@ def make_sharded_extender(mesh, *, W, match=2, mismatch=-4, gap=-3,
     """The extend step with lanes split over ALL devices of ``mesh`` (the
     lane dim is pure data parallelism; both mesh axes serve it): a
     callable ``(q, qlen, t, tlen, c0)`` of host arrays (LB lanes, LB a
-    multiple of the device count) returning host arrays (score (LB,),
-    moves (LB, max_steps), si (LB,), tb (LB,)) in lane order.  While a
-    profiler records it counts ``extend.lane_slots`` and, on cards,
-    ``adaptive.rows`` and ``adaptive.row_slots`` (``utils/timing.py``)."""
+    multiple of the device count) returning an :class:`Extended` in lane
+    order.  A card shard copies back its lanes' gapped strings, made on
+    the card (``gapped_strings``); a CPU shard its moves, which the caller
+    turns into strings (``moves_to_strings``).  While a profiler records
+    it counts ``extend.lane_slots`` and, on cards, ``adaptive.rows`` and
+    ``adaptive.row_slots`` (``utils/timing.py``)."""
     devices = list(mesh.devices.flat)
     kw = dict(W=W, match=match, mismatch=mismatch, gap=gap, x_drop=x_drop,
               max_steps=max_steps)
 
     def extender(q, qlen, t, tlen, c0):
-        per = len(qlen) // len(devices)
+        LB = len(qlen)
+        per = LB // len(devices)
         outs = []
         for s, dev in enumerate(devices):
             lanes = slice(s * per, (s + 1) * per)
@@ -653,22 +671,35 @@ def make_sharded_extender(mesh, *, W, match=2, mismatch=-4, gap=-3,
                         dev, non_blocking=True)
                     for x in (q, qlen, t, tlen, c0)), **kw))
             count("extend.lane_slots", per)
-        empty = (np.zeros(per, np.int32),
-                 np.zeros((per, max_steps), np.uint8),
-                 np.zeros(per, np.int32), np.zeros(per, np.int32))
+        score, si, tb = (np.zeros(LB, np.int32) for _ in range(3))
+        card = np.zeros(LB, bool)
+        strings = moves = None
         with span("align.dispatch.wait"):
-            back = tuple(np.concatenate([
-                empty[j] if o is None else o[j].cpu().numpy() for o in outs])
-                for j in range(4))
-            if tracing():
-                # the rows each lane ran against what each launch paid
-                # for: its lanes times its longest lane's rows
-                for o in outs:
-                    if o is not None and o[4] is not None:
-                        rows = o[4].cpu().numpy().astype(np.int64)
-                        count("adaptive.rows", rows.sum())
-                        count("adaptive.row_slots", len(rows) * rows.max())
-        return back
+            for s, o in enumerate(outs):
+                if o is None:
+                    continue
+                lanes = slice(s * per, (s + 1) * per)
+                back, rows = o
+                if rows is not None:   # a card's gapped strings
+                    if strings is None:
+                        strings = np.empty((LB, back.shape[1]), np.uint8)
+                    torch.from_numpy(strings[lanes]).copy_(back)
+                    head = np.ascontiguousarray(
+                        strings[lanes, :STRINGS_HEAD]).view(np.int32)
+                    score[lanes], si[lanes], tb[lanes] = head[:, :3].T
+                    card[lanes] = True
+                else:
+                    if moves is None:
+                        moves = np.zeros((LB, max_steps), np.uint8)
+                    for dst, x in zip((score, moves, si, tb), back):
+                        torch.from_numpy(dst[lanes]).copy_(x)
+                if rows is not None and tracing():
+                    # the rows each lane ran against what each launch paid
+                    # for: its lanes times its longest lane's rows
+                    rows = rows.cpu().numpy().astype(np.int64)
+                    count("adaptive.rows", rows.sum())
+                    count("adaptive.row_slots", len(rows) * rows.max())
+        return Extended(score, si, tb, card, strings, moves)
 
     return extender
 

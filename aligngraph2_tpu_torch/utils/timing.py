@@ -35,7 +35,8 @@ The aligner's spans (``align/aligner.py``, ``parallel/sharded.py``;
 
 Counters: ``extend.lanes`` (the live lanes given to the mesh extender),
 ``extend.lane_slots`` (the lanes of the shards it launched, padding
-included), ``adaptive.rows`` (the rows each lane of the adaptive band ran
+included), ``extend.card_strings`` (the live lanes whose gapped strings a
+card made: all of them on cards, 0 on the CPU), ``adaptive.rows`` (the rows each lane of the adaptive band ran
 on a card, summed), ``adaptive.row_slots`` (a launch's lanes times its
 longest lane's rows, summed over launches) and ``align.records`` (the
 records ``align_reads`` returns).

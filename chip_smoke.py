@@ -22,14 +22,18 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
           whose walks hit both band edges; kernel times, plain times,
           bounds and registers;
   adaptive_gate the adaptive band's two kernels against their plain
-          torch versions on the card (B=32, NQ=8192, W=256 at x_drop 250
-          and 0; B=8, NQ=32768; W=64, 128, 512, 1024, 16, 32, 2048 and
-          4096 at B=16, NQ=4096), on lanes with indel drift, clustered
-          x_drop deaths, short reads and windows, c0 at both clips and
-          one lane whose walk is a single DIAG run: score, best cell,
-          every row of dirs and centers, moves, move count and start
-          (also with max_steps cutting walks, inside that run too), all
-          exact; kernel and plain times, cycles a row and a move, bounds
+          torch versions, and the strings kernel against the host's
+          strings of the plain walks, on the card (B=32, NQ=8192, W=256
+          at x_drop 250 and 0; B=8, NQ=32768; W=64, 128, 512, 1024, 16,
+          32, 2048 and 4096 at B=16, NQ=4096), on lanes with indel
+          drift, clustered x_drop deaths, short reads and windows, c0 at
+          both clips and one lane whose walk is a single DIAG run: score,
+          best cell, every row of dirs and centers, moves, move count and
+          start
+          (also with max_steps cutting walks, inside that run too), and
+          each lane's gapped strings, qe and te, all exact; kernel and
+          plain times (the strings' plain time: moves_to_strings a lane
+          on the host), cycles a row and a move, bounds
           and registers per shape; at the first W=256 and W=2048 shape
           the cycles a row by phase of lane 0 from a clock64() copy of
           the source run through the same wrapper (its outputs exact
@@ -49,8 +53,9 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
   mesh    read -> contig of every read of the stage phase's dataset
           through the mesh path (parallel/) on a 1x1 mesh of the card:
           block-sharded device seeding through the seeder's two kernels
-          and extension through the adaptive band's (each of the four
-          launched; no static-band launch, no plain version on the card);
+          and extension through the adaptive band's and the strings
+          kernel (each of the five launched; no static-band launch, no
+          plain version on the card);
           wall, reads/s, lanes, blocks, the device index's bytes, and per
           sharded function its calls, card ms per call (synchronised
           before and after) and bytes bound; a seeder call's and an
@@ -62,8 +67,9 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
   mesh_grid the same reads on meshes that list the card four times, 2x2
           and 1x4: the block axis's split and concatenation and a
           per-shard index on a card; each .ref text must equal the mesh
-          phase's on every read, each seeder and adaptive kernel must
-          launch (no static-band launch, no plain version on the card);
+          phase's on every read, each seeder and adaptive kernel and the
+          strings kernel must launch (no static-band launch, no plain
+          version on the card);
           wall, reads/s, seeder and extender calls;
   seed_gate the histogram kernel (both strands' k-mer codes and
           histograms in one launch) against its plain version (each
@@ -130,7 +136,8 @@ checkout (nvcc and g++, in parallel), then prints one JSON line per phase:
   kernels one entry per CUDA kernel with its launches (the static
           band's in the pipeline and widths phases, the adaptive band's
           in the long_read, mesh, mesh_grid and widths phases, the
-          seeder's in the mesh, mesh_grid and widths phases), error,
+          strings kernel's and the seeder's in the mesh, mesh_grid and
+          widths phases), error,
           times and bound.
 
 then the card's name and power limit as nvidia-smi prints them and, last,
@@ -193,6 +200,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 DP_OPS_PER_CELL = 20   # serial recurrence: sub, 2 adds, 3 max, 4 selects,
                        # gap chain add+max, best compare+2 selects, pack 2
 TB_OPS_PER_STEP = 8    # word index, shift, mask, compare, 2 updates, store
+# a move of the strings kernel: two compares, two index clamps, two
+# gathers' addresses, two table lookups, two byte packs
+STR_OPS_PER_MOVE = 10
+STR_TILE = 2048        # the strings kernel's moves a tile (kStrTile)
 GATE_B, GATE_NQ = 1024, 8192   # the aligner's largest batch, PacBio bucket
 # (B, NQ, W, x_drop) of the gate; the kernels line reads the second
 GATE = ((GATE_B, GATE_NQ, 256, 0), (GATE_B, GATE_NQ, 256, 250),
@@ -247,6 +258,7 @@ KERNEL_OF_LAUNCH = {"dp_static_kernel launch": "banded_dp_static",
                     "tb_static_kernel launch": "traceback_static",
                     "dp_adaptive_kernel launch": "banded_align",
                     "tb_adaptive_kernel launch": "traceback",
+                    "tb_strings_kernel launch": "gapped_strings",
                     "seed_block_kernel launch": "seed_block",
                     "select_candidates_kernel launch": "select_candidates"}
 # the --cards phases' subprocesses: seconds each may take
@@ -386,7 +398,7 @@ def build_all() -> dict:
 def ptxas_regs(ptxas) -> dict:
     """{kernel: registers a thread} from ptxas' report, kernels named as
     dp_static_kernel<W>, tb_static_kernel<slots>, dp_adaptive_kernel<W>,
-    tb_adaptive_kernel<slots>, seed_block_kernel and
+    tb_adaptive_kernel<slots>, tb_strings_kernel, seed_block_kernel and
     select_candidates_kernel."""
     regs, name = {}, None
     for ln in ptxas:
@@ -395,7 +407,8 @@ def ptxas_regs(ptxas) -> dict:
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             name = f"{m.group(1)}<{args}>"
-        m = re.search(r"\d(seed_block_kernel|select_candidates_kernel)", ln)
+        m = re.search(r"\d(seed_block_kernel|select_candidates_kernel"
+                      r"|tb_strings_kernel)", ln)
         if m and "Compiling entry" in ln:
             name = m.group(1)
         m = re.search(r"Used (\d+) registers", ln)
@@ -712,6 +725,57 @@ def adaptive_bounds(rows, B, NQ, W, steps, max_steps):
             "operations" if tb_ops_ms >= tb_bytes_ms else "bytes", tb_lat_ms)
 
 
+def strings_bounds(n, B, max_steps):
+    """Least times of the strings kernel (tb_strings_kernel) on walks of
+    ``n`` moves: (bound ms, its kind, latency ms).  Bytes: a move and two
+    codes read a move, every byte of the B output rows written; operations
+    STR_OPS_PER_MOVE a move.  Latency: the longest walk's tiles of
+    ``STR_TILE`` moves, each two dependent reads from L2 (the moves, then
+    the codes), two barriers and a scan of 13 shuffle steps, and each
+    later tile of the row one store."""
+    from aligngraph2_tpu_torch.ops import banded_dp as bd
+    moves = int(n.sum())
+    row = bd.STRINGS_HEAD + 2 * bd.strings_stride(max_steps)
+    nbytes = 3 * moves + B * row + B * 4 * 7
+    ops_ms = moves * STR_OPS_PER_MOVE / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    tiles = -(-int(n.max()) // STR_TILE)
+    rest = -(-row // STR_TILE) - tiles
+    cycles = tiles * (2 * L2_HIT_CYCLES + 2 * 40 + 13 * 30) + rest * 30
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes",
+            cycles / SM_CLOCK_HZ * 1e3)
+
+
+def gate_strings(lanes, res, tb, ref, tbr, W):
+    """The strings kernel on the kernels' walk against moves_to_strings
+    on the plain versions' walk, every lane: (names of the lanes that
+    differ, host ms of moves_to_strings over the lanes)."""
+    import numpy as np
+    from aligngraph2_tpu_torch.ops import banded_dp as bd
+    q, qlen, t, tlen, _ = lanes
+    rows = bd.gapped_strings(tb[0], tb[1], tb[2],
+                             bd.start_column(res.centers, tb[2], tb[3], W),
+                             res.score, q, qlen, t, tlen)
+    moves, si, tcol = (x.cpu().numpy() for x in (
+        tbr[0], tbr[2], bd.start_column(ref.centers, tbr[2], tbr[3], W)))
+    qh, qlh, th, tlh, rh = (x.cpu().numpy() for x in (q, qlen, t, tlen,
+                                                      rows))
+    bad = []
+    t0 = time.perf_counter()
+    want = [bd.moves_to_strings(moves[b], qh[b, :qlh[b]], int(si[b]),
+                                int(tcol[b]), th[b, :tlh[b]])
+            for b in range(len(moves))]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    score = ref.score.cpu().numpy()
+    for b, w in enumerate(want):
+        head = rh[b, :12].view(np.int32)
+        if (bd.decode_strings(rh[b]) != w
+                or list(head) != [score[b], si[b], tcol[b]]):
+            bad.append(f"strings lane {b}")
+    return bad, host_ms
+
+
 def adaptive_gate(args, regs) -> dict:
     """The adaptive band's kernels against their plain versions on the
     card, on adaptive_lanes at each ADAPTIVE_GATE shape, lane DIAG_LANE
@@ -727,7 +791,7 @@ def adaptive_gate(args, regs) -> dict:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed + 2)
-    err = {"dp": 0, "tb": 0}
+    err = {"dp": 0, "tb": 0, "strings": 0}
     timing = {}
     clocked = set()
     for B, NQ, W, x_drop in ADAPTIVE_GATE:
@@ -756,8 +820,11 @@ def adaptive_gate(args, regs) -> dict:
                               max_steps=max_steps)
             for name, a, r in zip(("moves", "n", "si", "sj"), tb, tbr):
                 differ("tb", f"{name}@{max_steps}", a, r)
-            walks[max_steps] = (tb, ms)
-        tb, plain_tb_ms = walks[NQ + NT]
+            s_bad, s_host_ms = gate_strings(lanes, res, tb, ref, tbr, W)
+            err["strings"] = max(err["strings"], len(s_bad))
+            bad += [f"{b}@{max_steps}" for b in s_bad]
+            walks[max_steps] = (tb, ms, s_host_ms)
+        tb, plain_tb_ms, plain_str_ms = walks[NQ + NT]
         split = None
         if W in ADAPTIVE_CLOCKED and W not in clocked:
             clocked.add(W)
@@ -771,6 +838,10 @@ def adaptive_gate(args, regs) -> dict:
         tb_ms = cuda_ms(lambda: bd.traceback(
             res.dirs, res.centers, res.best_i, res.best_j,
             max_steps=NQ + NT), REPS)
+        tcol = bd.start_column(res.centers, tb[2], tb[3], W)
+        str_ms = cuda_ms(lambda: bd.gapped_strings(
+            tb[0], tb[1], tb[2], tcol, res.score, *lanes[:4]), REPS)
+        str_b, str_by, str_lat = strings_bounds(tb[1], B, NQ + NT)
         dp_b, dp_by, dp_lat, tb_b, tb_by, tb_lat = adaptive_bounds(
             rows, B, NQ, W, tb[1], NQ + NT)
         diag_moves = tb[0][DIAG_LANE, :int(tb[1][DIAG_LANE])]
@@ -801,17 +872,22 @@ def adaptive_gate(args, regs) -> dict:
               "tb_bound_ms": tb_b, "tb_bound_by": tb_by,
               "tb_latency_bound_ms": tb_lat, "tb_moves": int(tb[1].sum()),
               "tb_longest_walk": int(tb[1].max()),
+              "strings_ms": str_ms, "strings_host_ms": plain_str_ms,
+              "strings_bound_ms": str_b, "strings_bound_by": str_by,
+              "strings_latency_bound_ms": str_lat,
               "dp_phase_split": split,
               "regs": {k: v for k, v in regs.items()
                        if k.startswith((f"dp_adaptive_kernel<{W},",
-                                        f"tb_adaptive_kernel<{W},"))}})
+                                        f"tb_adaptive_kernel<{W},",
+                                        "tb_strings_kernel"))}})
         if bad:
             raise SystemExit(f"adaptive_gate failed at B={B} NQ={NQ} W={W} "
                              f"x_drop={x_drop}: {bad}")
         if (B, NQ, W, x_drop) == ADAPTIVE_GATE[0]:
             timing = dict(dp=(dp_ms, plain_dp_ms, dp_b, dp_by),
-                          tb=(tb_ms, plain_tb_ms, tb_b, tb_by))
-        del res, ref, tb, walks, lanes
+                          tb=(tb_ms, plain_tb_ms, tb_b, tb_by),
+                          strings=(str_ms, plain_str_ms, str_b, str_by))
+        del res, ref, tb, walks, lanes, tcol
     timing["err"] = err
     return timing
 
@@ -870,7 +946,8 @@ def zero_launches() -> None:
     from aligngraph2_tpu_torch.ops import banded_static as bs
     from aligngraph2_tpu_torch.parallel import sharded
     for fn in (bs.banded_dp_static, bs.traceback_static, bd.banded_align,
-               bd.traceback, sharded.seed_block, sharded.select_candidates):
+               bd.traceback, bd.gapped_strings, sharded.seed_block,
+               sharded.select_candidates):
         fn.launches = 0
 
 
@@ -1185,14 +1262,14 @@ COPIES = {"Memcpy HtoD": "copies_to_card", "Memcpy DtoH": "copies_to_host"}
 def extender_split(mc) -> dict:
     """Where an extender call's time goes: the extender calls that
     MeshCalls kept (all with a live lane), replayed under torch.profiler,
-    card time by kind per call (the two kernels, the wrappers' torch ops:
-    dirs and moves zeroed, fill_centers, the centres gather, and the
+    card time by kind per call (the three kernels, the wrappers' torch
+    ops: dirs and moves zeroed, fill_centers, the centres gather, and the
     copies each way), beside the run's ms per whole extender call (host
     arrays in and out) and per ``_extend_body`` call (device tensors in
     and out)."""
     wall, device = replay_card_ms(mc.replay, {
         "dp_adaptive_kernel": "dp_kernel", "tb_adaptive_kernel": "tb_kernel",
-        **COPIES})
+        "tb_strings_kernel": "strings_kernel", **COPIES})
     body = mc.stats["_extend_body"]
     return {"calls": mc.extender["calls"],
             "call_ms": mc.extender["ms"] / max(mc.extender["calls"], 1),
@@ -1891,13 +1968,14 @@ def select_gate(seed, kw, regs) -> dict:
 def mesh(args, regs, reads, ctgs, mesh_cpu) -> tuple:
     """Read -> contig for every read of the stage dataset through the mesh
     path on a 1x1 mesh of the card, which must launch each adaptive
-    kernel and each seeder kernel, no static-band kernel and no plain
-    version on the card; the CPU's records of the first MESH_CPU_READS
-    (the future ``mesh_cpu`` of :func:`mesh_on_cpu`) must equal the
-    card's.  Then the seeder's kernels against their plain versions
-    (:func:`seed_gate`, :func:`select_gate`) on the run's block index and
-    settings.  Returns the adaptive kernels' launches, the seeder
-    kernels', the two gates' timings and the run's .ref text."""
+    kernel, the strings kernel and each seeder kernel, no static-band
+    kernel and no plain version on the card; the CPU's records of the
+    first MESH_CPU_READS (the future ``mesh_cpu`` of
+    :func:`mesh_on_cpu`) must equal the card's.  Then the seeder's
+    kernels against their plain versions (:func:`seed_gate`,
+    :func:`select_gate`) on the run's block index and settings.  Returns
+    the adaptive and strings kernels' launches, the seeder kernels', the
+    two gates' timings and the run's .ref text."""
     import torch
     from aligngraph2_tpu_torch.align.aligner import LongReadAligner
     from aligngraph2_tpu_torch.align.records import AlignmentSet
@@ -1916,7 +1994,7 @@ def mesh(args, regs, reads, ctgs, mesh_cpu) -> tuple:
         alns = al.align_reads(reads, ids=range(n))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = adaptive_launches()
+    launches = {**adaptive_launches(), **strings_launches()}
     s_launches = seed_launches()
     static = bs.banded_dp_static.launches + bs.traceback_static.launches
     idx = al._block_index
@@ -2012,7 +2090,13 @@ def all_launches() -> dict:
     from aligngraph2_tpu_torch.ops import banded_static as bs
     return {"banded_dp_static": bs.banded_dp_static.launches,
             "traceback_static": bs.traceback_static.launches,
-            **adaptive_launches(), **seed_launches()}
+            **adaptive_launches(), **strings_launches(), **seed_launches()}
+
+
+def strings_launches() -> dict:
+    """The strings kernel's launches: the mesh extender's alone."""
+    from aligngraph2_tpu_torch.ops import banded_dp as bd
+    return {"gapped_strings": bd.gapped_strings.launches}
 
 
 def kernel_split(work) -> dict:
@@ -2152,7 +2236,7 @@ def widths(args, widths_cpu) -> dict:
                 "equal_": bool(card) and card == cpu_text}
 
     alns = run("mesh", lambda: al.align_reads(reads, ids=ids), len(ids),
-               ("banded_align", "traceback", "seed_block",
+               ("banded_align", "traceback", "gapped_strings", "seed_block",
                 "select_candidates"), mesh_extra)
     check_records(alns, reads, sim)
     return total
@@ -2295,10 +2379,10 @@ def mesh_grid(reads, ctgs, ref_text) -> dict:
     list the one card four times (MESH_GRID: 2x2 and 1x4): the block
     axis's split and concatenation and a per-shard index on a card.  Each
     .ref text must equal the mesh phase's 1x1 text on every read; each
-    seeder and adaptive kernel must launch, and no static-band kernel or
-    plain version may run on the card.  A line per mesh: wall, reads/s,
-    seeder and extender calls, launches.  Returns each kernel's launches
-    summed over the meshes."""
+    seeder and adaptive kernel and the strings kernel must launch, and no
+    static-band kernel or plain version may run on the card.  A line per
+    mesh: wall, reads/s, seeder and extender calls, launches.  Returns
+    each kernel's launches summed over the meshes."""
     import torch
     from aligngraph2_tpu_torch.parallel.mesh import make_mesh
 
@@ -2316,7 +2400,7 @@ def mesh_grid(reads, ctgs, ref_text) -> dict:
         if not same:
             raise SystemExit(f"mesh_grid {mesh.shape}: .ref text differs "
                              "from the 1x1 mesh's")
-        need = ("banded_align", "traceback", "seed_block",
+        need = ("banded_align", "traceback", "gapped_strings", "seed_block",
                 "select_candidates")
         if static or plain or not all(launches[k] for k in need):
             raise SystemExit(f"mesh_grid {mesh.shape}: launches {launches}, "
@@ -2409,7 +2493,7 @@ def cards_mesh(args, n, reads, ctgs) -> dict:
         cards = [d.index for d in mesh.devices.flat]
         homes = {d.index for d in mesh.devices[:, 0]}
         missing = [(name, c) for name in ("seed_block", "banded_align",
-                                          "traceback")
+                                          "traceback", "gapped_strings")
                    for c in cards if not counts[name].get(c)]
         missing += [("select_candidates", c) for c in homes
                     if not counts["select_candidates"].get(c)]
@@ -3306,6 +3390,21 @@ def main() -> int:
             "max_abs_err": float(a_timing["err"][key]), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None})
+    # the strings kernel (replaces no TPU kernel: the host's
+    # moves_to_strings, its plain time): launches in the mesh extender's
+    # phases, times at the adaptive gate's mesh shape
+    ms, plain_ms, bound, by = a_timing["strings"]
+    by_phase = {"mesh": a_launches["mesh"]["gapped_strings"],
+                "mesh_grid": g_launches["gapped_strings"],
+                "widths": w_launches["gapped_strings"]}
+    kernels.append({
+        "name": "gapped_strings", "route": "cuda",
+        "source": "aligngraph2_tpu_torch/csrc/banded_adaptive.cu",
+        "replaces": None, "launches": sum(by_phase.values()),
+        "launches_by_phase": by_phase,
+        "max_abs_err": float(a_timing["err"]["strings"]), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None})
     # the mesh seeder's: launches in the mesh, mesh_grid and widths
     # phases; times at the seed gate's S=32 x 8192 and the select gate's
     # B=32, N=96
