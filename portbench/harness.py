@@ -19,6 +19,12 @@ A run:
      program's state, and checks a sample of the window's reads, drawn
      from the seed with the longest among them (:class:`Sample`), against
      the reference.
+
+A traffic file may list the deployment's ``parts`` a job needs (default:
+its ``target`` and the reads) and give ``job_reads`` as ``"all"`` (each
+job takes the whole pool).  A job class that defines ``check()`` adds its
+own compared numbers, each with its limit and rule as :func:`limits`
+writes them, to the per-read comparison.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import resource
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -225,13 +232,17 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, devices: list,
     ``devices``; returns the result line's object, "check" last."""
     traffic = spec["traffic"]
     on_card = devices[0].type == "cuda"
+    parts = (set(traffic["parts"]) if "parts" in traffic
+             else {traffic["target"], "reads"})
     dep = deployment.build(spec["config"], seed, traffic["pool_coverage"],
-                           {traffic["target"], "reads"})
+                           parts)
     reads = dep["reads"]
     log(f"deployment: {len(reads)} reads, {int(reads.lengths.sum())} bp; "
         f"{time.perf_counter() - t_start:.1f} s")
     job = job_class(traffic["job"])(dep, traffic, devices)
-    job_reads = traffic["job_reads"]
+    # "all": each job takes the whole pool
+    job_reads = (len(reads) if traffic["job_reads"] == "all"
+                 else traffic["job_reads"])
     job.run(job.warmup_ids(job_reads))
     _sync(devices)
     setup_s = time.perf_counter() - t_start
@@ -291,10 +302,16 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, devices: list,
     t_ref = time.perf_counter()
     rids = sample.pick(kept)
     ref = job.reference(job.ref_device(devices))
-    want = ref.align(reads, rids)
-    numbers = compare(got, want, reads.names)
-    numbers["jobs_failed"] = failed // job_reads
-    check = limits(numbers, len(rids), chk["reads"])
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # a job's own numbers, with their limits, worked out beside the
+        # reference
+        own = pool.submit(job.check) if hasattr(job, "check") else None
+        want = ref.align(reads, rids)
+        numbers = compare(got, want, reads.names)
+        numbers["jobs_failed"] = failed // job_reads
+        check = limits(numbers, len(rids), chk["reads"])
+        if own is not None:
+            check.update(own.result())
     log(f"reference: {len(rids)} reads in {time.perf_counter() - t_ref:.1f}"
         f" s; " + ", ".join(f"{k} {v:.1f}" for k, v in ref.times.items()))
 
