@@ -502,13 +502,13 @@ class LongReadAligner:
     # ---------------- mesh path ----------------
 
     def _ensure_sharded_index(self) -> None:
-        from ..parallel.sharded import build_block_index, put_sharded_index
+        from ..parallel.sharded import (build_block_index, mesh_block_len,
+                                        put_sharded_index)
         if self._block_index is not None:
             return
         cfg = self.cfg
         longest = int(self.db.lengths.max()) if len(self.db) else 1
-        BL = min(cfg.block_size, longest)
-        BL = max((BL + 127) // 128 * 128, 4 * cfg.band_width, 256)
+        BL = mesh_block_len(longest, cfg.block_size, cfg.band_width)
         with span("align.index"):
             self._block_index = build_block_index(
                 self.db, cfg.seed_k, BL,

@@ -57,6 +57,8 @@ up to ``max_occ``).
 from __future__ import annotations
 
 import contextlib
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -104,6 +106,24 @@ class BlockIndex(NamedTuple):
     overlap: int
 
 
+def mesh_block_len(longest: int, block_size: int, band_width: int) -> int:
+    """The block length of the mesh path's index for a target whose
+    longest sequence has ``longest`` bases: ``block_size`` (at most the
+    longest) rounded up to a multiple of 128, at least 4 x band_width and
+    256."""
+    BL = min(block_size, longest)
+    return max((BL + 127) // 128 * 128, 4 * band_width, 256)
+
+
+def block_starts(n: int, k: int, block_len: int, overlap: int) -> list:
+    """The starts of the blocks of a sequence of n bases: every
+    block_len - overlap bases from 0 while the sequence runs past the
+    overlap, but for pieces shorter than k."""
+    return [s for s in range(0, max(n - overlap, 1),
+                             max(block_len - overlap, 1))
+            if min(block_len, n - s) >= k]
+
+
 def build_block_index(db: SeqDatabase, k: int, block_len: int,
                       overlap: int | None = None,
                       pad_blocks_to: int = 1) -> BlockIndex:
@@ -111,22 +131,20 @@ def build_block_index(db: SeqDatabase, k: int, block_len: int,
     block's k-mers.  Overlap (default a quarter block) keeps alignments
     near block boundaries findable in at least one block; ``pad_blocks_to``
     pads the block count to a multiple (empty rows) so the arrays split
-    evenly over the block mesh axis."""
+    evenly over the block mesh axis.  The blocks are indexed in threads
+    (numpy's sort releases the GIL): a 119 Mb target has 795 blocks of
+    200 kb, an argsort each."""
     if overlap is None:
         overlap = block_len // 4
     # int32 sorted-code arrays bound the device index to k <= 15
     # (AlignerConfig.seed_k_max defaults to 15 for this reason)
     if k > 15:
         raise ValueError(f"block index supports k <= 15, got {k}")
-    stride = max(block_len - overlap, 1)
     pieces = []  # (seq_id, start, codes)
     for i in range(len(db)):
         codes = db.get_codes(i)
-        for s in range(0, max(len(codes) - overlap, 1), stride):
-            piece = codes[s:s + block_len]
-            if len(piece) < k:
-                continue
-            pieces.append((i, s, piece))
+        for s in block_starts(len(codes), k, block_len, overlap):
+            pieces.append((i, s, codes[s:s + block_len]))
     nb = len(pieces)
     nb_pad = max(((nb + pad_blocks_to - 1) // pad_blocks_to)
                  * pad_blocks_to, pad_blocks_to)
@@ -137,7 +155,9 @@ def build_block_index(db: SeqDatabase, k: int, block_len: int,
     start = np.zeros(nb_pad, np.int32)
     s_codes = np.full((nb_pad, idx_len), INT32_MAX, np.int32)
     s_pos = np.zeros((nb_pad, idx_len), np.int32)
-    for bi, (sid, st, piece) in enumerate(pieces):
+
+    def index_block(bi):
+        sid, st, piece = pieces[bi]
         blocks[bi, :len(piece)] = piece
         lens[bi] = len(piece)
         seq_id[bi] = sid
@@ -146,6 +166,9 @@ def build_block_index(db: SeqDatabase, k: int, block_len: int,
         order = np.argsort(kc, kind="stable")
         s_codes[bi, :len(kc)] = kc[order]
         s_pos[bi, :len(kc)] = order
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(index_block, range(nb)))
     return BlockIndex(blocks, lens, seq_id, start, s_codes, s_pos,
                       k, block_len, overlap)
 
@@ -249,7 +272,9 @@ def _select_read_candidates_ref(cnt, tid, gdiag, *, K, min_hits, alpha,
 
     S = dict(kept=torch.zeros((B, N), dtype=torch.bool, device=dev),
              i=torch.zeros((), dtype=torch.int64, device=dev))
-    _loop(step, S, N, lambda S: False)
+    # the valid entries are a prefix of every row's order, and no step past
+    # a row's prefix keeps anything: the walk ends with the longest prefix
+    _loop(step, S, int(valid.sum(1).max()), lambda S: False)
     kept = S["kept"]
 
     def f32(x):
@@ -287,11 +312,17 @@ def _seed_reads_ref(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos, *,
     the forward strand first."""
     kw = dict(NQ=NQ, nbins=nbins, bin_w=bin_w, occ=occ, max_occ=max_occ,
               top_t=top_t)
+    # a padding row (length 0) has no k-mer, so its counts and diagonals
+    # are all 0: only the other rows are searched
+    rows = (read_lens > 0).nonzero().flatten()
     per_strand = [_seed_block_candidates_ref(
-        *kmer_codes_batch(q, read_lens, k), sorted_codes, sorted_pos, **kw)
-        for q in (q_fwd, q_rev)]
-    return (torch.stack([c for c, _ in per_strand], 1),
-            torch.stack([d for _, d in per_strand], 1))
+        *kmer_codes_batch(q[rows], read_lens[rows], k), sorted_codes,
+        sorted_pos, **kw) for q in (q_fwd, q_rev)]
+    out = torch.zeros((2, q_fwd.shape[0], 2, sorted_codes.shape[0], top_t),
+                      dtype=torch.int32, device=q_fwd.device)
+    for j in range(2):
+        out[j, rows] = torch.stack([x[j] for x in per_strand], 1)
+    return out[0], out[1]
 
 
 def _seed_reads(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos,
@@ -300,9 +331,11 @@ def _seed_reads(q_fwd, q_rev, read_lens, sorted_codes, sorted_pos,
     and diag (B, 2, NB_l, T) int32: :func:`seed_block` on CUDA tensors,
     the plain version on CPU tensors (arguments as
     :func:`_seed_reads_ref`, and the blocks' :func:`seed_directory`, which
-    only the kernel reads: None will do on the CPU)."""
+    only the kernel reads: None will do on the CPU).  Counts the (read
+    strand, block) pairs scanned, 2 B NB_l, as ``seed.read_blocks``."""
     kw = dict(k=k, NQ=NQ, nbins=nbins, bin_w=bin_w, occ=occ,
               max_occ=max_occ, top_t=top_t)
+    count("seed.read_blocks", 2 * q_fwd.shape[0] * sorted_codes.shape[0])
     if q_fwd.device.type == "cpu":
         return _seed_reads_ref(q_fwd, q_rev, read_lens, sorted_codes,
                                sorted_pos, **kw)
@@ -314,9 +347,11 @@ def _select_read_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta,
                             bin_w, prune=0.0):
     """Global per-read candidate selection, (sel, idx, score) each (B, K):
     :func:`select_candidates` on CUDA tensors, the plain version on CPU
-    tensors (arguments as :func:`_select_read_candidates_ref`)."""
+    tensors (arguments as :func:`_select_read_candidates_ref`).  Counts
+    the candidates weighed, B N, as ``select.candidates``."""
     kw = dict(K=K, min_hits=min_hits, alpha=alpha, beta=beta, bin_w=bin_w,
               prune=prune)
+    count("select.candidates", cnt.numel())
     if cnt.device.type == "cpu":
         return _select_read_candidates_ref(cnt, tid, gdiag, **kw)
     return select_candidates(cnt, tid, gdiag, **kw)
@@ -467,7 +502,8 @@ def select_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta, bin_w,
     contiguous; the stable cnt-descending order is one torch.sort here.
     Returns (sel (B, K) bool, idx (B, K) int32, score (B, K) float32).
     Raises on any input the kernel does not take, among them bin_w
-    outside [0, 2^30]."""
+    outside [0, 2^30].  Counts the rows whose table lies in the scratch
+    (B past SELECT_SHARED_SLOTS, else 0) as ``select.scratch_rows``."""
     from ..ops import _cuda
     B, N = cnt.shape
     dev = cnt.device
@@ -500,6 +536,7 @@ def select_candidates(cnt, tid, gdiag, *, K, min_hits, alpha, beta, bin_w,
         score.data_ptr(), stream)
     _cuda.check(lib, code, "select_candidates_kernel launch")
     select_candidates.launches += 1
+    count("select.scratch_rows", B if slots > SELECT_SHARED_SLOTS else 0)
     return sel, idx, score
 
 
@@ -565,7 +602,11 @@ def make_sharded_seeder(mesh, *, k, BL, bin_w, min_hits, occ=4,
     """The seed step over ``mesh``: a callable
     ``(q_fwd, q_rev, read_lens, *put_sharded_index(...))`` of host arrays
     (B rows, B a multiple of the data axis) returning host arrays (sel,
-    c_block, c_strand, c_diag, c_cnt, score), each (B, K), in row order."""
+    c_block, c_strand, c_diag, c_cnt, score), each (B, K), in row order.
+    While a profiler records it counts ``seed.selected`` (the candidates
+    kept, sel's sum) and its steps count ``seed.read_blocks``,
+    ``select.candidates`` and ``select.scratch_rows``
+    (``utils/timing.py``)."""
     data_par = mesh.devices.shape[0]
     kw = dict(k=k, BL=BL, bin_w=bin_w, min_hits=min_hits, occ=occ,
               max_occ=max_occ, alpha=alpha, beta=beta, K=K, prune=prune)
@@ -595,9 +636,12 @@ def make_sharded_seeder(mesh, *, k, BL, bin_w, min_hits, occ=4,
                  np.zeros((per, K), np.int32),
                  np.zeros((per, K), np.float32))
         with span("align.seed.wait"):
-            return tuple(np.concatenate([
+            out = tuple(np.concatenate([
                 empty[j] if o is None else o[j].cpu().numpy() for o in outs])
                 for j in range(6))
+        if tracing():
+            count("seed.selected", out[0].sum())
+        return out
 
     return seeder
 

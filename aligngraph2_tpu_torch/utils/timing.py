@@ -38,8 +38,13 @@ Counters: ``extend.lanes`` (the live lanes given to the mesh extender),
 included), ``extend.card_strings`` (the live lanes whose gapped strings a
 card made: all of them on cards, 0 on the CPU), ``adaptive.rows`` (the rows each lane of the adaptive band ran
 on a card, summed), ``adaptive.row_slots`` (a launch's lanes times its
-longest lane's rows, summed over launches) and ``align.records`` (the
-records ``align_reads`` returns).
+longest lane's rows, summed over launches), ``align.records`` (the
+records ``align_reads`` returns), and the mesh seeder's
+``seed.read_blocks`` (the (read strand, index block) pairs its seeding
+scanned, 2 B NB_l a call and block shard), ``select.candidates`` (the
+candidates its selection weighed, B N a call), ``select.scratch_rows``
+(the rows of a card's selection whose table lay in the global scratch,
+N past 8,192) and ``seed.selected`` (the candidates it kept).
 """
 
 from __future__ import annotations

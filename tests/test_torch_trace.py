@@ -18,13 +18,14 @@ none does.
 The inputs are tiny: a traced run records every torch op of the CPU's
 plain band."""
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from aligngraph2_tpu_torch.align.aligner import LongReadAligner
 from aligngraph2_tpu_torch.config import AlignerConfig
-from aligngraph2_tpu_torch.io.seqdb import SeqDatabase
+from aligngraph2_tpu_torch.io.seqdb import SeqDatabase, revcomp_codes
 from aligngraph2_tpu_torch.parallel import sharded
 from aligngraph2_tpu_torch.parallel.mesh import make_mesh
 from aligngraph2_tpu_torch.utils import timing
@@ -169,3 +170,85 @@ def test_card_rows_count_dp_adaptive(data, monkeypatch):
     assert 0 < c["adaptive.rows"] <= c["adaptive.row_slots"]
     assert 0 < c["extend.lanes"] <= c["extend.lane_slots"]
     assert c["align.records"] == len(out) <= c["extend.lanes"]
+
+
+# ---------------------------------------------------------------------------
+# the mesh seeder's counters
+
+
+def _seeder_call(db, reads, shape, live_rows):
+    """One call of the mesh seeder over a (data x block) mesh of the CPU
+    device on the first ``live_rows`` of 4 rows of reads (the rest
+    padding): (its outputs, rows a data row, NB padded, N)."""
+    data_par, block_par = shape
+    k, K = CFG["seed_k"], CFG["max_candidates"]
+    BL = sharded.mesh_block_len(int(db.lengths.max()), CFG["block_size"],
+                                CFG["band_width"])
+    index = sharded.build_block_index(db, k, BL, pad_blocks_to=block_par)
+    mesh = make_mesh(devices=[torch.device("cpu")] * (data_par * block_par),
+                     block_parallel=block_par)
+    seeder = sharded.make_sharded_seeder(
+        mesh, k=k, BL=BL, bin_w=32, min_hits=CFG["min_block_hits"], K=K,
+        prune=0.25)
+    q_fwd, q_rev = (np.zeros((4, 512), np.uint8) for _ in range(2))
+    lens = np.zeros(4, np.int32)
+    for r in range(live_rows):
+        codes = reads.get_codes(r)
+        q_fwd[r, :len(codes)] = codes
+        q_rev[r, :len(codes)] = revcomp_codes(codes)
+        lens[r] = len(codes)
+    NB = len(index.block_lens)
+    out = seeder(q_fwd, q_rev, lens, *sharded.put_sharded_index(index, mesh))
+    return out, 4 // data_par, NB, 2 * NB * K
+
+
+@pytest.mark.parametrize("shape, live_rows, live_data_rows", [
+    ((1, 1), 3, 1), ((2, 2), 4, 2), ((2, 2), 2, 1)],
+    ids=["mesh1x1", "mesh2x2", "mesh2x2-padding-row"])
+def test_seeder_counters(data, shape, live_rows, live_data_rows):
+    """Traced: 2 B NB read-block pairs and B N candidates over the data
+    rows that hold a read (a row of padding only is not run), the kept
+    candidates as sel's sum, and no scratch row on the CPU."""
+    db, reads = data
+    with profile(activities=[ProfilerActivity.CPU]):
+        out, per, NB, N = _seeder_call(db, reads, shape, live_rows)
+    c = timing.counts()
+    assert NB % shape[1] == 0
+    assert c == {"seed.read_blocks": live_data_rows * 2 * per * NB,
+                 "select.candidates": live_data_rows * per * N,
+                 "seed.selected": int(out[0].sum())}
+    assert c["seed.selected"] > 0
+
+
+def test_seeder_untraced_counts_nothing(data):
+    db, reads = data
+    timing.tracing()
+    _seeder_call(db, reads, (2, 2), 4)
+    assert timing.counts() == {}
+
+
+@pytest.mark.parametrize("N, scratch", [(96, False), (8192, False),
+                                        (8193, True), (12720, True)])
+def test_select_scratch_rows(monkeypatch, N, scratch):
+    """The card wrapper counts a call's rows as ``select.scratch_rows``
+    when their table is past the shared slots (N > 8,192), else 0; the
+    launch is stubbed, so only the wrapper's own arithmetic runs."""
+    from aligngraph2_tpu_torch.ops import _cuda
+
+    class Lib:
+        @staticmethod
+        def agc_select_candidates(*args):
+            return 0
+
+    monkeypatch.setattr(_cuda, "need", lambda *a, **kw: None)
+    monkeypatch.setattr(_cuda, "get_seed_lib", Lib)
+    monkeypatch.setattr(_cuda, "launch_target", lambda dev: (0, 0))
+    B = 3
+    cnt, gdiag = (torch.zeros((B, N), dtype=torch.int32) for _ in range(2))
+    tid = torch.ones(N, dtype=torch.int32)
+    kw = dict(K=8, min_hits=4, alpha=0.5, beta=2.0, bin_w=128)
+    sharded.select_candidates(cnt, tid, gdiag, **kw)
+    assert timing.counts() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        sharded.select_candidates(cnt, tid, gdiag, **kw)
+    assert timing.counts() == {"select.scratch_rows": B if scratch else 0}
